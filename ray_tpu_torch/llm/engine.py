@@ -1,0 +1,609 @@
+"""LLMEngine: slot-based continuous batching over the PyTorch decode path.
+Port of the dense-KV path of ``ray_tpu/llm/engine.py``.
+
+- **Dense per-slot cache** (``kv_block_size=0``): ``[L, max_slots, H,
+  max_seq, Dh]`` k and v tensors, updated in place. A fresh prompt prefills
+  through :func:`ray_tpu_torch.models.gpt2_decode.prefill`, whose causal
+  attention is the hand-written CUDA flash kernel on an H100.
+- **Continuous batching**: a request holds a slot from admission until
+  EOS/max_tokens; new requests prefill into freed slots between decode
+  steps. The decode batch is always ``[max_slots]``: idle slots decode
+  garbage that is never read, as in the reference.
+- **Prefix caching** and **chunked prefill** behave as the reference's
+  dense path does, with the same bucket guards: every padded write is
+  checked to fit inside ``max_seq`` before it is issued.
+
+Host state (positions, last tokens, slot table) lives in numpy. Each step
+reads the device back once, for the decode logits; admission reads back
+the last-logits of a prompt to sample its first token, as the reference
+does.
+
+Not ported yet (they raise ``NotImplementedError``): the paged KV cache
+(``kv_block_size > 0``), speculative decoding, tensor parallelism and the
+disaggregated prefill/decode handoff. The reference's metrics and flight
+recorder telemetry are not ported either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import pickle
+import time as _time
+from collections import deque
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
+from ray_tpu_torch.llm.tokenizer import ByteTokenizer
+from ray_tpu_torch.models import gpt2, gpt2_decode
+from ray_tpu_torch.models.convert import gpt2_params_from_numpy
+from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
+from ray_tpu_torch.util.prefix_digest import BYTE_BOS_SCHEME, chain_digests
+
+
+@dataclasses.dataclass
+class _Request:
+    request_id: str
+    prompt: list
+    max_tokens: int
+    temperature: float
+    stop_token: Optional[int]
+    generated: list = dataclasses.field(default_factory=list)
+    slot: int = -1
+    finished: bool = False
+    # Chunked prefill: the request holds a slot but is still prefilling
+    # its prompt one chunk per step; pf_next is the next absolute prompt
+    # position to prefill. No token samples until pf_next reaches the
+    # prompt length.
+    prefilling: bool = False
+    pf_next: int = 0
+    error: Optional[str] = None
+    # Admission wall-clock, for the rolling TTFT window.
+    t_admit: float = 0.0
+
+
+class LLMEngine:
+    def __init__(
+        self,
+        config: LLMConfig,
+        tokenizer=None,
+        *,
+        device: "str | torch.device" = "cuda",
+    ):
+        """``device`` is the card unless the caller asks for ``"cpu"``; a
+        CUDA request with no GPU raises."""
+        if config.kv_block_size > 0:
+            raise NotImplementedError(
+                "the paged KV cache is not ported yet; pass kv_block_size=0"
+            )
+        if config.spec_decode_tokens > 0:
+            raise NotImplementedError("speculative decoding is not ported yet")
+        if config.tensor_parallelism > 1:
+            raise NotImplementedError("tensor parallelism is not ported yet")
+        self.device = resolve_device(device)
+        set_exact_matmul()
+        self.config = config
+        self.tokenizer = tokenizer or ByteTokenizer()
+        cfg = config.build_model_config()
+        if cfg.vocab_size < self.tokenizer.vocab_size:
+            raise ValueError("model vocab smaller than tokenizer vocab")
+        if config.max_seq > cfg.max_seq:
+            # Positions past the model's table would index wpe out of
+            # range (the reference clamps them silently).
+            raise ValueError(
+                f"max_seq ({config.max_seq}) exceeds the model's position "
+                f"table ({cfg.max_seq})"
+            )
+        self.model_config = cfg
+
+        if config.weights_path:
+            with open(config.weights_path, "rb") as f:
+                params = gpt2_params_from_numpy(pickle.load(f), cfg, self.device)
+        else:
+            gen = torch.Generator(device=self.device).manual_seed(config.seed)
+            params = gpt2.init_params(gen, cfg, self.device)
+        self.params = params
+        # Matmul weights cast once to the activation dtype (the reference
+        # casts per matmul; the values are identical).
+        self._cparams = gpt2.compute_params(params, cfg)
+
+        B, S = config.max_slots, config.max_seq
+        self.cache = gpt2_decode.init_kv_cache(cfg, B, S, device=self.device)
+        # Prefix pool: key (chunk-aligned token tuple hash, length) ->
+        # {"k","v": [L, 1, H, P, Dh] tensors, "len", "used", "tokens"}.
+        # LRU within max_prefix_cache_tokens.
+        self._prefix_pool: dict = {}
+        self._prefix_tokens_cached = 0
+        self._prefix_clock = 0
+        # Routing advertisement, rebuilt on pool mutation and swapped in
+        # whole (a reader on another thread sees one snapshot or the next).
+        self._digest_snapshot: tuple = ()
+        self._digest_version = 0
+        self.stats = {
+            "prefill_tokens": 0,  # tokens that PAID prefill compute
+            "prefill_chunks": 0,  # chunked-prefill pieces executed
+            "prefix_hits": 0,
+            "prefix_lookups": 0,
+            "prefix_tokens_reused": 0,
+            "tokens_generated": 0,
+        }
+        # Host-side slot state (numpy: mutated per step)
+        self.positions = np.zeros(B, np.int32)  # next write position
+        self.last_tokens = np.zeros(B, np.int32)
+        self.slot_free = [True] * B
+        self.requests: dict[str, _Request] = {}
+        self._slot_req: list = [None] * B
+        self._rng = np.random.default_rng(config.seed)
+        self._pf_rr = 0  # round-robin cursor over prefilling slots
+        self._steps = 0
+        # Rolling TTFT window of (monotonic, seconds) pairs: a routing and
+        # overload signal; samples expire by age as well as by count.
+        self._ttft_window: deque = deque(maxlen=64)
+        self.TTFT_WINDOW_S = 30.0
+
+    # -- device helpers --------------------------------------------------------
+    def _h2d(self, arr) -> torch.Tensor:
+        """A host array on the engine's device. On the card the copy is
+        staged through pinned memory and issued without a host sync, so a
+        step's only device-to-host wait is its logits readback."""
+        t = torch.from_numpy(np.array(arr, dtype=np.int64))
+        if self.device.type == "cuda":
+            return t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    @staticmethod
+    def _d2h(logits: torch.Tensor) -> np.ndarray:
+        return logits.cpu().numpy()
+
+    # -- per-slot bodies (in-place cache update) -------------------------------
+    def _slot_view(self, slot: int) -> dict:
+        """Slot ``slot``'s cache rows as ``[L, 1, H, S, Dh]`` views: the
+        model functions write through them into the engine's cache."""
+        return {n: t[:, slot : slot + 1] for n, t in self.cache.items()}
+
+    def _prefill_impl(self, tokens: np.ndarray, length: int, slot: int):
+        """Prefill ONE slot: tokens [1, T]; returns last-logits [vocab]."""
+        _, logits = gpt2_decode.prefill(
+            self._cparams,
+            self._h2d(tokens),
+            self._h2d([length]),
+            self._slot_view(slot),
+            self.model_config,
+        )
+        return logits[0]
+
+    def _prefill_cont_impl(self, tokens: np.ndarray, length: int, start: int, slot: int):
+        """Prefill ONE slot's suffix on top of a cached prefix already in
+        that slot's rows [0, start). The caller's bucket choice keeps
+        ``start + T <= max_seq``; the model function raises otherwise."""
+        _, logits = gpt2_decode.prefill_continue(
+            self._cparams,
+            self._h2d(tokens),
+            self._h2d([length]),
+            start,
+            self._slot_view(slot),
+            self.model_config,
+        )
+        return logits[0]
+
+    def _copy_prefix_in_impl(self, pk, pv, slot: int) -> None:
+        """Write a pooled prefix ([L, 1, H, P, Dh]) into a slot's rows
+        [0, P), in place."""
+        P = pk.shape[3]
+        self.cache["k"][:, slot : slot + 1, :, :P] = pk
+        self.cache["v"][:, slot : slot + 1, :, :P] = pv
+
+    def _copy_prefix_out_impl(self, slot: int, length: int):
+        """A copy of a slot's rows [0, length) as a pool entry."""
+        view = self._slot_view(slot)
+        return view["k"][:, :, :, :length].clone(), view["v"][:, :, :, :length].clone()
+
+    # -- admission -----------------------------------------------------------
+    def add_request(
+        self,
+        request_id: str,
+        prompt: "str | list",
+        sampling: SamplingParams | None = None,
+        prefill_only: bool = False,
+    ) -> None:
+        """Admit a request (prompt text or token ids)."""
+        if prefill_only:
+            raise NotImplementedError(
+                "prefill_only requests (disaggregated serving) are not ported yet"
+            )
+        sampling = sampling or SamplingParams()
+        ids = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
+        max_prompt = max(self.config.prefill_buckets)
+        if len(ids) > max_prompt:
+            ids = ids[-max_prompt:]
+        stop = sampling.stop_token if sampling.stop_token is not None else self.tokenizer.eos_id
+        self.requests[request_id] = _Request(
+            request_id=request_id,
+            prompt=ids,
+            max_tokens=sampling.max_tokens,
+            temperature=sampling.temperature,
+            stop_token=stop,
+            t_admit=_time.perf_counter(),
+        )
+
+    def add_handoff_request(self, request_id, handoff, sampling=None) -> None:
+        raise NotImplementedError("disaggregated KV handoffs are not ported yet")
+
+    # -- prefix pool ---------------------------------------------------------
+    def _aligned_prefix_len(self, prompt_len: int) -> int:
+        """Longest chunk-aligned STRICT prefix (>= 1 token must remain to
+        prefill, or there are no last-logits to sample from)."""
+        chunk = self.config.prefix_chunk
+        return ((prompt_len - 1) // chunk) * chunk
+
+    def _chain_hashes(self, prompt: list) -> dict:
+        """Rolling per-chunk hash chain: H_p = hash((H_{p-c}, chunk))."""
+        chunk = self.config.prefix_chunk
+        chain: dict[int, int] = {}
+        h = 0
+        for p in range(chunk, self._aligned_prefix_len(len(prompt)) + 1, chunk):
+            h = hash((h, tuple(prompt[p - chunk : p])))
+            chain[p] = h
+        return chain
+
+    def _find_prefix(self, prompt: list):
+        """Longest pooled prefix of ``prompt`` (verified against the stored
+        tokens, so a hash collision never serves another prompt's KV)."""
+        if not self.config.enable_prefix_caching:
+            return None
+        self.stats["prefix_lookups"] += 1
+        chain = self._chain_hashes(prompt)
+        for p in sorted(chain, reverse=True):
+            entry = self._prefix_pool.get((chain[p], p))
+            if entry is not None and entry["tokens"] == tuple(prompt[:p]):
+                self._prefix_clock += 1
+                entry["used"] = self._prefix_clock
+                return entry
+        return None
+
+    def _insert_prefix(self, prompt: list, slot: int) -> None:
+        """Pool the prompt's longest aligned prefix: copy the slot's rows
+        out."""
+        if not self.config.enable_prefix_caching:
+            return
+        p = self._aligned_prefix_len(len(prompt))
+        if p < self.config.prefix_chunk or p > self.config.max_prefix_cache_tokens:
+            return
+        chain = self._chain_hashes(prompt)
+        key = (chain[p], p)
+        self._prefix_clock += 1
+        existing = self._prefix_pool.get(key)
+        if existing is not None and existing["tokens"] == tuple(prompt[:p]):
+            existing["used"] = self._prefix_clock
+            return
+        while (
+            self._prefix_pool
+            and self._prefix_tokens_cached + p > self.config.max_prefix_cache_tokens
+        ):
+            self._evict_one_prefix()
+        k, v = self._copy_prefix_out_impl(slot, p)
+        self._prefix_pool[key] = {
+            "len": p,
+            "used": self._prefix_clock,
+            "tokens": tuple(prompt[:p]),
+            "k": k,
+            "v": v,
+        }
+        self._prefix_tokens_cached += p
+        self._refresh_digest_snapshot()
+
+    def _evict_one_prefix(self) -> bool:
+        """Drop the LRU prefix-pool entry, returning its tokens to the
+        budget. The caller refreshes the digest snapshot."""
+        if not self._prefix_pool:
+            return False
+        victim = min(self._prefix_pool, key=lambda k: self._prefix_pool[k]["used"])
+        self._prefix_tokens_cached -= self._prefix_pool.pop(victim)["len"]
+        return True
+
+    def _admit_waiting(self) -> list:
+        """Admit waiting requests into free slots (FIFO); returns requests
+        that finished DURING admission (max_tokens=1 / stop token at
+        prefill)."""
+        admit_finished: list = []
+        waiting = [r for r in self.requests.values() if r.slot < 0 and not r.finished]
+        for req in waiting:
+            try:
+                slot = self.slot_free.index(True)
+            except ValueError:
+                return admit_finished
+            logits = self._admit_dense(req, slot)
+            if req.prefilling:
+                # Chunked prefill took the slot but defers its first
+                # sample to _advance_prefills; keep admitting.
+                continue
+            T = len(req.prompt)
+            tok = self._sample(self._d2h(logits), req)
+            req.slot = slot
+            self.slot_free[slot] = False
+            self._slot_req[slot] = req
+            self._first_token(req, tok)
+            self.positions[slot] = T
+            self.last_tokens[slot] = tok
+            self._maybe_finish(req)
+            if req.finished:
+                admit_finished.append(req)
+        return admit_finished
+
+    def _first_token(self, req: _Request, tok: int) -> None:
+        req.generated.append(tok)
+        self.stats["tokens_generated"] += 1
+        now = _time.perf_counter()
+        self._ttft_window.append((_time.monotonic(), now - req.t_admit))
+
+    def _admit_dense(self, req: _Request, slot: int):
+        """Dense per-slot cache admission. Returns the prompt's
+        last-logits, or None when chunked prefill took the slot."""
+        T = len(req.prompt)
+        entry = self._find_prefix(req.prompt)
+        if entry is not None:
+            # The suffix bucket must FIT behind the prefix: no fitting
+            # bucket -> full prefill (correct, just unaided).
+            P = entry["len"]
+            rem = T - P
+            bucket = next(
+                (
+                    b
+                    for b in self.config.prefill_buckets
+                    if b >= rem and P + b <= self.config.max_seq
+                ),
+                None,
+            )
+            if bucket is None:
+                entry = None
+        if entry is not None:
+            # Prefix hit: copy the pooled KV into the slot, prefill only
+            # the suffix.
+            self._copy_prefix_in_impl(entry["k"], entry["v"], slot)
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += P
+            if self._chunks_feasible(P, T):
+                self._begin_chunked_prefill(req, slot, P)
+                return None
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :rem] = req.prompt[P:]
+            logits = self._prefill_cont_impl(toks, rem, P, slot)
+            self.stats["prefill_tokens"] += rem
+        else:
+            if self._chunks_feasible(0, T):
+                self._begin_chunked_prefill(req, slot, 0)
+                return None
+            bucket = next(
+                (b for b in self.config.prefill_buckets if b >= T),
+                self.config.prefill_buckets[-1],
+            )
+            toks = np.zeros((1, bucket), np.int64)
+            toks[0, :T] = req.prompt
+            logits = self._prefill_impl(toks, T, slot)
+            self.stats["prefill_tokens"] += T
+        self._insert_prefix(req.prompt, slot)
+        return logits
+
+    # -- chunked prefill -----------------------------------------------------
+    # A long prompt's suffix prefills in prefill_chunk_tokens-sized pieces,
+    # one chunk per engine step, interleaved with decode steps. While a slot
+    # is prefilling, positions[slot] == pf_next, so the fixed-shape decode's
+    # garbage write for that slot lands where the next chunk (or the first
+    # real decode) overwrites it.
+
+    def _chunk_bucket(self, start: int, clen: int):
+        """Smallest prefill bucket that holds a ``clen``-token chunk at
+        ``start`` WITHOUT reaching past max_seq; None when none fits."""
+        for b in self.config.prefill_buckets:
+            if b >= clen and start + b <= self.config.max_seq:
+                return b
+        return None
+
+    def _chunks_feasible(self, start: int, T: int) -> bool:
+        """True when the [start, T) suffix should prefill chunked: the knob
+        is on, the suffix is longer than one chunk, and EVERY chunk has a
+        fitting bucket (checked up front)."""
+        chunk = self.config.prefill_chunk_tokens
+        if chunk <= 0 or T - start <= chunk:
+            return False
+        s = start
+        while s < T:
+            clen = min(chunk, T - s)
+            if self._chunk_bucket(s, clen) is None:
+                return False
+            s += clen
+        return True
+
+    def _begin_chunked_prefill(self, req: _Request, slot: int, start: int):
+        req.slot = slot
+        req.prefilling = True
+        req.pf_next = start
+        self.slot_free[slot] = False
+        self._slot_req[slot] = req
+        self.positions[slot] = start
+        self.last_tokens[slot] = 0
+
+    def _prefill_one_chunk(self, req: _Request):
+        """Prefill the next chunk of ``req``'s prompt; returns the chunk's
+        last-logits (only the final chunk's are ever sampled)."""
+        T = len(req.prompt)
+        start = req.pf_next
+        clen = min(self.config.prefill_chunk_tokens, T - start)
+        bucket = self._chunk_bucket(start, clen)
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :clen] = req.prompt[start : start + clen]
+        logits = self._prefill_cont_impl(toks, clen, start, req.slot)
+        self.stats["prefill_tokens"] += clen
+        self.stats["prefill_chunks"] += 1
+        req.pf_next = start + clen
+        self.positions[req.slot] = req.pf_next
+        return logits
+
+    def _advance_prefills(self) -> list:
+        """ONE chunk, for ONE prefilling slot (round-robin), per step. A
+        slot whose final chunk lands samples its first token and joins the
+        decode batch. Returns requests that finished here."""
+        B = len(self._slot_req)
+        req = None
+        for off in range(B):
+            slot = (self._pf_rr + off) % B
+            cand = self._slot_req[slot]
+            if cand is not None and cand.prefilling:
+                req = cand
+                self._pf_rr = (slot + 1) % B
+                break
+        if req is None:
+            return []
+        logits = self._prefill_one_chunk(req)
+        T = len(req.prompt)
+        if req.pf_next < T:
+            return []
+        req.prefilling = False
+        tok = self._sample(self._d2h(logits), req)
+        self._insert_prefix(req.prompt, req.slot)
+        self._first_token(req, tok)
+        self.positions[req.slot] = T
+        self.last_tokens[req.slot] = tok
+        self._maybe_finish(req)
+        return [req] if req.finished else []
+
+    def _sample(self, logits: np.ndarray, req: _Request) -> int:
+        if req.temperature <= 0.0:
+            return int(np.argmax(logits))
+        z = logits / req.temperature
+        z = z - z.max()
+        p = np.exp(z)
+        p /= p.sum()
+        return int(self._rng.choice(len(p), p=p))
+
+    def _maybe_finish(self, req: _Request) -> None:
+        done = (
+            len(req.generated) >= req.max_tokens
+            or req.generated[-1] == req.stop_token
+            or (req.slot >= 0 and self.positions[req.slot] + 1 >= self.config.max_seq)
+        )
+        if done:
+            req.finished = True
+            self._release_slot(req)
+
+    def _release_slot(self, req: _Request) -> None:
+        if req.slot >= 0:
+            self.slot_free[req.slot] = True
+            self._slot_req[req.slot] = None
+            req.slot = -1
+
+    # -- the engine loop ------------------------------------------------------
+    @torch.no_grad()
+    def step(self) -> list:
+        """Admit + one decode step for all active slots. Returns the
+        requests that finished this step."""
+        # Prefill chunks of already-admitted long prompts advance BEFORE
+        # this step's admissions: one chunk per request per step.
+        finished = self._advance_prefills()
+        finished += self._admit_waiting()
+        active = [r for r in self._slot_req if r is not None and not r.prefilling]
+        if active:
+            _, logits = gpt2_decode.decode_step(
+                self._cparams,
+                self._h2d(self.last_tokens),
+                self._h2d(self.positions),
+                self.cache,
+                self.model_config,
+            )
+            logits_np = self._d2h(logits)  # the decode step's one readback
+            for req in active:
+                slot = req.slot
+                self.positions[slot] += 1
+                tok = self._sample(logits_np[slot], req)
+                req.generated.append(tok)
+                self.stats["tokens_generated"] += 1
+                self.last_tokens[slot] = tok
+                self._maybe_finish(req)
+                if req.finished:
+                    finished.append(req)
+        self._steps += 1
+        return finished
+
+    # Advertisement cap: the pool's token budget already bounds the digest
+    # count, but a tiny chunk against a big budget must not grow it unboundedly.
+    MAX_ADVERTISED_DIGESTS = 512
+
+    def _refresh_digest_snapshot(self) -> None:
+        """Rebuild the routing advertisement from the pool: every
+        chunk-multiple prefix of every pooled entry. Snapshot first,
+        version last, so a reader never pairs a new version with stale
+        digests."""
+        chunk = self.config.prefix_chunk
+        out: set = set()
+        for e in self._prefix_pool.values():
+            out.update(chain_digests(e["tokens"], chunk, strict=False))
+            if len(out) >= self.MAX_ADVERTISED_DIGESTS:
+                break
+        self._digest_snapshot = tuple(out)
+        self._digest_version += 1
+
+    def prefix_digest(self) -> dict:
+        """Compact routing advertisement: what the prefix pool holds plus
+        the cache-pressure signals a router biases on."""
+        version = self._digest_version
+        digests = list(self._digest_snapshot)
+        lookups = self.stats["prefix_lookups"]
+        return {
+            "scheme": BYTE_BOS_SCHEME if isinstance(self.tokenizer, ByteTokenizer) else "custom",
+            "chunk": self.config.prefix_chunk,
+            "digests": digests,
+            "version": version,
+            "hit_rate": (self.stats["prefix_hits"] / lookups) if lookups else 0.0,
+            "kv_util": 0.0,
+            "prefill_tokens": self.stats["prefill_tokens"],
+            "prefix_tokens_reused": self.stats["prefix_tokens_reused"],
+        }
+
+    def rolling_ttft_ms(self) -> float:
+        """p95 of the recent-TTFT window in milliseconds, counting only
+        samples younger than TTFT_WINDOW_S (0.0 when none)."""
+        cutoff = _time.monotonic() - self.TTFT_WINDOW_S
+        window = sorted(v for t, v in list(self._ttft_window) if t >= cutoff)
+        if not window:
+            return 0.0
+        idx = min(len(window) - 1, int(0.95 * len(window)))
+        return round(window[idx] * 1e3, 3)
+
+    def has_unfinished(self) -> bool:
+        return any(not r.finished for r in self.requests.values())
+
+    def kv_stats(self) -> dict:
+        return {"paged": False}
+
+    def pop_finished(self) -> list:
+        done = [r for r in self.requests.values() if r.finished]
+        for r in done:
+            del self.requests[r.request_id]
+        return done
+
+    # -- convenience -----------------------------------------------------------
+    def generate(self, prompts: list, sampling: SamplingParams | None = None) -> list[dict]:
+        """Blocking batch generation; returns [{text, token_ids}] in order."""
+        base = self._steps
+        ids = [f"gen-{base}-{i}" for i in range(len(prompts))]
+        for rid, p in zip(ids, prompts):
+            self.add_request(rid, p, sampling)
+        while self.has_unfinished():
+            self.step()
+        done = {r.request_id: r for r in self.pop_finished()}
+        out = []
+        for rid in ids:
+            req = done[rid]
+            toks = [t for t in req.generated if t != req.stop_token]
+            out.append(
+                {
+                    "request_id": rid,
+                    "token_ids": list(req.generated),
+                    "text": self.tokenizer.decode(toks),
+                    "num_generated": len(req.generated),
+                    "error": req.error,
+                }
+            )
+        return out
