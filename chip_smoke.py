@@ -5,9 +5,8 @@
 
 Phases, each of which fails the script (non-zero exit) when it fails:
 
-1. Print the card's name and power limit (``nvidia-smi``) and build every
-   CUDA kernel of the port with ``nvcc``, one process per source, all
-   started together.
+1. Print the card's name and power limit (``nvidia-smi``) and build the
+   port's CUDA kernel with ``nvcc`` from the checkout's sources.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path gives it, and time kernel, plain version and
    the PyTorch library call that computes the same function.
@@ -301,13 +300,9 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    t0 = time.perf_counter()
-    built = _build.build_all()
-    log(f"built {sorted(built)} in {time.perf_counter() - t0:.2f} s")
-    for b in built.values():
-        log(f"--- nvcc {b.name}.cu ({b.seconds:.2f} s)\n{b.log.strip()}")
+    built = _build.build("flash_fwd")
+    log(f"--- nvcc {built.name}.cu ({built.seconds:.2f} s)\n{built.log.strip()}")
 
-    build_s = {n: b.seconds for n, b in built.items()}
     rows = check_flash_kernel(dev)
     run = serve_engine(np.random.default_rng(0))
     engine = run.pop("engine")
@@ -330,7 +325,7 @@ def main() -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
-        "build_s": build_s["flash_fwd"],
+        "build_s": built.seconds,
         "by_shape": rows,
     }]
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,11 @@
 """LLM tier configuration. Port of ``ray_tpu/llm/config.py``.
 
-The fields are the reference's, so one config describes both engines. The
-port's engine serves the dense KV cache only so far: it raises
-``NotImplementedError`` for ``kv_block_size > 0``, ``spec_decode_tokens > 0``
-and ``tensor_parallelism > 1``.
+The port's engine serves the dense KV cache only so far, so this config
+holds only the fields it reads. Three of them name later work and make the
+engine raise ``NotImplementedError`` when set: ``kv_block_size > 0`` (the
+paged cache), ``spec_decode_tokens > 0`` and ``tensor_parallelism > 1``.
+The reference's model id, paged pool size, replica placement and draft
+model fields arrive with the code that reads them.
 """
 
 from __future__ import annotations
@@ -22,21 +24,17 @@ class SamplingParams:
 
 @dataclasses.dataclass
 class LLMConfig:
-    model_id: str = "gpt2-125m"
     # None -> GPT2Config.gpt2_125m(); tests pass a tiny config.
     model_config: Any = None
     # Serving shape
     max_slots: int = 16  # concurrent sequences (continuous-batching slots)
     max_seq: int = 2048  # cache length (prompt + generation)
     prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024, 2048)
-    # Paged KV cache: > 0 selects block tables over a shared pool (the
-    # reference's default, 16); 0 is the dense per-slot cache.
-    kv_block_size: int = 16
-    num_kv_blocks: Optional[int] = None
-    # Tensor-parallel degree.
+    # 0 is the dense per-slot cache. > 0 selects the reference's paged
+    # cache (its default there is 16), which is not ported yet.
+    kv_block_size: int = 0
+    # Tensor-parallel degree (only 1 is ported).
     tensor_parallelism: int = 1
-    # Resources each replica actor demands.
-    placement: dict = dataclasses.field(default_factory=lambda: {"num_cpus": 1})
     # Initial weights: a path to a pickled params pytree of numpy arrays,
     # or None for random init from ``seed``.
     weights_path: Optional[str] = None
@@ -50,10 +48,8 @@ class LLMConfig:
     # tokens prefill in chunks of this size, one chunk per engine step.
     # 0 = disabled.
     prefill_chunk_tokens: int = 0
-    # Speculative decoding: draft tokens per step (0 = off).
+    # Speculative decoding: draft tokens per step (0 = off; not ported yet).
     spec_decode_tokens: int = 0
-    draft_model_config: Any = None
-    draft_weights_path: Optional[str] = None
 
     def build_model_config(self):
         from ray_tpu_torch.models.gpt2 import GPT2Config

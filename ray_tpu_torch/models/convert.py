@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models.gpt2 import GPT2Config
+from ray_tpu_torch.util.device import resolve_device
 
 
 def _tensor(arr, device) -> torch.Tensor:
@@ -47,12 +48,14 @@ def _expected_shapes(cfg: GPT2Config) -> dict:
     }
 
 
-def gpt2_params_from_numpy(tree: dict, cfg: GPT2Config, device="cpu") -> dict:
+def gpt2_params_from_numpy(tree: dict, cfg: GPT2Config, device="cuda") -> dict:
     """The reference's dense GPT-2 params (numpy leaves) as torch tensors
-    on ``device``, key for key and in their own dtype. Raises on a missing
-    or extra key or a shape that ``cfg`` does not expect."""
+    on ``device`` (the card unless the caller asks for ``"cpu"``; a CUDA
+    request with no GPU raises), key for key and in their own dtype. Raises
+    on a missing or extra key or a shape that ``cfg`` does not expect."""
     if "gate_w" in tree.get("blocks", {}):
         raise NotImplementedError("mixture-of-experts GPT-2 is not ported yet")
+    device = resolve_device(device)
 
     def walk(node, spec, path):
         if set(node) != set(spec):

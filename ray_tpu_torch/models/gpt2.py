@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.util.device import resolve_device
 
 Params = dict
 
@@ -87,13 +88,15 @@ MATMUL_LEAVES = ("qkv_w", "qkv_b", "proj_w", "proj_b", "fc_w", "fc_b", "fc2_w", 
 
 
 def init_params(
-    generator: torch.Generator, cfg: GPT2Config, device: "str | torch.device" = "cpu"
+    generator: torch.Generator, cfg: GPT2Config, device: "str | torch.device" = "cuda"
 ) -> Params:
     """GPT-2 initialization: N(0, 0.02), residual projections scaled by
     1/sqrt(2*n_layer), zeros for biases, ones for LN scales. Draws on the
-    generator's device, then moves to ``device``. The numbers differ from
-    the reference's ``jax.random`` for the same seed."""
+    generator's device, then moves to ``device``: the card unless the caller
+    asks for ``"cpu"`` (a CUDA request with no GPU raises). The numbers
+    differ from the reference's ``jax.random`` for the same seed."""
     _check_supported(cfg)
+    device = resolve_device(device)
     std = 0.02
     pd = cfg.param_dtype
     L, D, F_, V, S = cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.max_seq

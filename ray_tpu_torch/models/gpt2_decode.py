@@ -32,9 +32,11 @@ def init_kv_cache(
     cfg: GPT2Config,
     n_slots: int,
     max_seq: int | None = None,
-    device: "str | torch.device" = "cpu",
+    *,
+    device: "str | torch.device",
 ):
-    """Zeroed cache: {"k","v"}: [L, B, H, S, Dh] in the activation dtype."""
+    """Zeroed cache: {"k","v"}: [L, B, H, S, Dh] in the activation dtype,
+    on ``device`` (no default: the caller names where the cache lives)."""
     S = max_seq or cfg.max_seq
     shape = (cfg.n_layer, n_slots, cfg.n_head, S, cfg.head_dim)
     return {

@@ -4,8 +4,7 @@ Each ``csrc/<name>.cu`` has a plain C interface and becomes its own shared
 library, ``_build/lib<name>-<hash>.so`` beside the package (git-ignored).
 The hash covers the source and the flags, so an edited source rebuilds and
 a stale library is never loaded. Nothing builds at import: :func:`load`
-compiles on first use, and :func:`build_all` starts one ``nvcc`` per source
-at once so that a cold start pays for the slowest file, not the sum.
+compiles on first use.
 
 The libraries link the CUDA runtime statically and share PyTorch's primary
 context; the caller passes device pointers and PyTorch's current stream as
@@ -19,7 +18,6 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -34,12 +32,10 @@ NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", 
 class Built:
     name: str
     path: Path
-    seconds: float  # wall time of this process's nvcc run; 0.0 when reused
+    seconds: float  # wall time of this call's nvcc run; 0.0 when reused
     log: str  # nvcc's output (ptxas register/shared-memory report)
 
 
-_lock = threading.Lock()
-_built: dict[str, Built] = {}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -54,56 +50,29 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit to build")
 
 
-def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{key}.so"
-
-
-def _start(name: str):
-    out = _target(name)
+def build(name: str) -> Built:
+    """Compile ``csrc/<name>.cu`` unless its hash-named library exists."""
+    src = CSRC / f"{name}.cu"
+    key = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode())
+    out = BUILD_DIR / f"lib{name}-{key.hexdigest()[:16]}.so"
     if out.exists():
-        return out, None
+        return Built(name, out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    return out, (proc, tmp, time.perf_counter())
-
-
-def _finish(name: str, out: Path, pending) -> Built:
-    if pending is None:
-        return Built(name, out, 0.0, "")
-    proc, tmp, t0 = pending
-    log, _ = proc.communicate()
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{log}")
+        raise RuntimeError(f"nvcc failed for {name}.cu (rc {proc.returncode}):\n{proc.stdout}")
     os.replace(tmp, out)  # atomic: a concurrent builder never loads a partial file
-    return Built(name, out, seconds, log)
-
-
-def sources() -> list[str]:
-    return sorted(p.stem for p in CSRC.glob("*.cu"))
-
-
-def build_all(names: list[str] | None = None) -> dict[str, Built]:
-    """Build every named kernel (default: all of ``csrc/``), one ``nvcc``
-    per source, all started together. Returns what each build did."""
-    names = names or sources()
-    with _lock:
-        started = {n: _start(n) for n in names if n not in _built}
-        for n, (out, pending) in started.items():
-            _built[n] = _finish(n, out, pending)
-        return {n: _built[n] for n in names}
+    return Built(name, out, seconds, proc.stdout)
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, building it on first use."""
     lib = _libs.get(name)
     if lib is None:
-        built = build_all([name])[name]
-        with _lock:
-            lib = _libs.setdefault(name, ctypes.CDLL(str(built.path)))
+        lib = _libs.setdefault(name, ctypes.CDLL(str(build(name).path)))
     return lib

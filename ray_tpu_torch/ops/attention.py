@@ -149,13 +149,10 @@ def flash_attention_fwd(q, k, v, scale):
 
 def uses_flash_kernel(x: torch.Tensor, *, impl: str = "auto") -> bool:
     """Whether :func:`causal_attention` on ``x`` runs the CUDA kernel: for
-    ``impl="auto"``, true for a CUDA tensor on an sm_90 device, whatever its
-    sequence length (the kernel masks the ragged edge itself)."""
-    if impl == "cuda":
-        return True
-    if impl != "auto":
-        return False
-    return x.is_cuda and _is_hopper(x.device)
+    ``impl`` "auto" or "cuda", true for a CUDA tensor on an sm_90 device,
+    whatever its sequence length (the kernel masks the ragged edge itself).
+    Where this is false, "auto" takes the plain path and "cuda" raises."""
+    return impl in ("auto", "cuda") and x.is_cuda and _is_hopper(x.device)
 
 
 def causal_attention(

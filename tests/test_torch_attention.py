@@ -82,6 +82,7 @@ def test_cpu_tensor_never_reaches_the_kernel():
     q = torch.zeros(1, 1, 8, 64)
     assert not pt_attn.uses_flash_kernel(q)
     assert not pt_attn.uses_flash_kernel(q, impl="reference")
+    assert not pt_attn.uses_flash_kernel(q, impl="cuda")  # causal_attention raises
     before = pt_attn.flash_fwd_launches
     with pytest.raises(ValueError, match="CUDA"):
         pt_attn.causal_attention(q, q, q, impl="cuda")

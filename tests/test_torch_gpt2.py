@@ -70,7 +70,7 @@ def test_prefill_and_teacher_forced_decode_match_jax(models):
     jcache, jlog = jdec.prefill(
         jparams, jnp.asarray(toks[:, :T0]), jnp.asarray(lengths), jcache, jcfg
     )
-    pcache = pdec.init_kv_cache(pcfg, 2, S)
+    pcache = pdec.init_kv_cache(pcfg, 2, S, device="cpu")
     pcache, plog = pdec.prefill(
         pparams, torch.from_numpy(toks[:, :T0]).long(), torch.from_numpy(lengths),
         pcache, pcfg,
@@ -111,7 +111,7 @@ def test_prefill_continue_matches_jax(models):
     )
     pcache, _ = pdec.prefill(
         pparams, torch.from_numpy(prompt[:, :P]).long(), torch.tensor([P]),
-        pdec.init_kv_cache(pcfg, 1, S), pcfg,
+        pdec.init_kv_cache(pcfg, 1, S, device="cpu"), pcfg,
     )
     pcache, plog = pdec.prefill_continue(
         pparams, torch.from_numpy(suffix).long(), torch.tensor([rem]), P, pcache, pcfg
@@ -154,8 +154,30 @@ def test_unported_variants_raise(models):
     for cfg in (dataclasses.replace(pcfg, n_experts=2),
                 dataclasses.replace(pcfg, pipeline_microbatches=2)):
         with pytest.raises(NotImplementedError):
-            pgpt2.init_params(torch.Generator().manual_seed(0), cfg)
+            pgpt2.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
         with pytest.raises(NotImplementedError):
             pgpt2.forward(pparams, toks, cfg)
     with pytest.raises(NotImplementedError, match="ring attention"):
         pgpt2.forward(pparams, toks, pcfg, mesh=object())
+
+
+def test_entry_points_default_to_the_card(models):
+    """init_params and the conversion run on the card unless the caller asks
+    for the CPU; with no GPU they raise instead of carrying on there. The
+    cache names its device every time."""
+    _, jparams, pcfg, _ = models
+    tree = jax.tree.map(np.asarray, jparams)
+    gen = torch.Generator().manual_seed(0)
+    on_cpu = pgpt2.init_params(gen, pcfg, device="cpu")
+    assert on_cpu["blocks"]["qkv_w"].device.type == "cpu"
+    assert on_cpu["blocks"]["qkv_w"].dtype == pcfg.param_dtype
+    if torch.cuda.is_available():
+        assert pgpt2.init_params(gen, pcfg)["wte"].is_cuda
+        assert gpt2_params_from_numpy(tree, pcfg)["wte"].is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            pgpt2.init_params(gen, pcfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            gpt2_params_from_numpy(tree, pcfg)
+    with pytest.raises(TypeError):
+        pdec.init_kv_cache(pcfg, 1, 8)  # device is required
