@@ -6,10 +6,12 @@
 Phases, each of which fails the script (non-zero exit) when it fails:
 
 1. Print the card's name and power limit (``nvidia-smi``) and build the
-   port's CUDA kernel with ``nvcc`` from the checkout's sources.
+   port's CUDA kernels with ``nvcc`` from the checkout's sources, one
+   ``nvcc`` per source, all started together.
 2. Hold each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, and time kernel, plain version and
-   the PyTorch library call that computes the same function.
+   shapes the serving path (B=1) and the training path (B=8, S=1024) give
+   it, and time kernel, plain version and the PyTorch library call that
+   computes the same function.
 3. Serve GPT-2-125M at full width (random weights from a seed) through the
    port's ``LLMEngine`` with the dense KV cache: 6 requests of ~20 to ~1000
    prompt tokens, two of them sharing a 64-token prefix. The kernels' launch
@@ -18,6 +20,13 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    plain attention, on the card.
 5. Profile where a step's time goes (torch.profiler: device busy share and
    the heaviest kernels of one prefill step and of decode steps).
+6. Train GPT-2-125M at full width through the port's ``make_train_step``
+   (batch [8, 1024], bf16 activations, f32 masters, ``remat="mlp"``,
+   ``loss_chunk=0``): one step's loss and gradient norm through the kernels
+   against the plain attention, 3 warm-up and 10 timed steps with the
+   launch counts zeroed just before the timed steps and read just after,
+   one step at ``loss_chunk=128`` against ``loss_chunk=0``, and one
+   profiled step.
 
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -26,8 +35,11 @@ and exits 1. Long output (nvcc's register report) goes to stderr.
 
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
+import functools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -38,8 +50,9 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import LLMEngine
-from ray_tpu_torch.models import gpt2_decode
+from ray_tpu_torch.models import gpt2, gpt2_decode
 from ray_tpu_torch.ops import _build, attention
+from ray_tpu_torch.train import spmd
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -53,10 +66,24 @@ PEAK_BF16_FLOP_PER_S = 989e12
 # LSE: f32 throughout, only the order of the sums differs.
 O_TOL = 2e-2
 LSE_TOL = 1e-2
+# Backward kernel vs plain, as max abs error over the largest magnitude of
+# each of dq, dk, dv: both round p and dS to bf16, but a one-ulp (2^-8)
+# flip of either, from f32 sums in another order, moves a product summed
+# over up to S rows, and each result is rounded to bf16 itself.
+BWD_TOL = 2e-2
+# Training step through the kernels vs through the plain attention (and
+# loss_chunk=128 vs 0): the difference may be at most twice the one between
+# the plain bf16 step and the plain f32 step, or these floors, whichever
+# is larger (loss: absolute, near ln(50304) = 10.8; gradient norm: relative).
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_GNORM_TOL = 2e-2
 
 SERVE_SHAPES = [32, 128, 512, 1024, 2048, 100]  # prefill buckets + one ragged S
 HEADLINE_S = 1024
 MAX_TOKENS = 32
+TRAIN_B, TRAIN_S = 8, 1024  # bench.py's per-chip batch at max_seq
+WARMUP_STEPS, TIMED_STEPS = 3, 10
+KERNELS = ("flash_fwd", "flash_bwd")
 
 
 def log(*a):
@@ -97,11 +124,27 @@ def time_ms(fn, iters: int) -> float:
 
 
 def qkv_views(S, dev, B=1, H=12, D=64, seed=0):
-    """q, k, v as prefill hands them to the kernel: strided head views of
-    one [B, S, 3*H*D] projection."""
+    """q, k, v as prefill and training hand them to the kernels: strided
+    head views of one [B, S, 3*H*D] projection."""
     g = torch.Generator(device=dev).manual_seed(seed)
     qkv = torch.randn((B, S, 3 * H * D), generator=g, device=dev).to(torch.bfloat16)
     return [t.reshape(B, S, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1)]
+
+
+def grad_out(S, dev, B=1, H=12, D=64, seed=0):
+    """dO as training hands it to the backward: the gradient of O, whose
+    storage is [B, S, H, D], seen as [B, H, S, D]."""
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    return torch.randn((B, S, H, D), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+
+
+def build_kernels() -> dict:
+    """One nvcc per kernel source, all started together."""
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        built = dict(zip(KERNELS, pool.map(_build.build, KERNELS)))
+    for b in built.values():
+        log(f"--- nvcc {b.name}.cu ({b.seconds:.2f} s)\n{b.log.strip()}")
+    return built
 
 
 def flash_bound_ms(B, H, S, D) -> tuple[float, str]:
@@ -114,10 +157,27 @@ def flash_bound_ms(B, H, S, D) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def flash_bwd_bound_ms(B, H, S, D) -> tuple[float, str]:
+    """Least time for a causal backward: q, k, v, O and dO read once, dq, dk
+    and dv written once (bf16), LSE and delta (f32); five products over the
+    S(S+1)/2 causal pairs."""
+    nbytes = 8 * B * H * S * D * 2 + 2 * B * H * S * 4
+    flops = 10 * B * H * D * S * (S + 1) / 2
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_BF16_FLOP_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def attention_shapes():
+    """(B, S) of every kernel check: the serving buckets at B=1, then the
+    training shape."""
+    return [(1, S) for S in SERVE_SHAPES] + [(TRAIN_B, TRAIN_S)]
+
+
 def check_flash_kernel(dev) -> list[dict]:
     rows = []
-    for S in SERVE_SHAPES:
-        q, k, v = qkv_views(S, dev, seed=S)
+    for B, S in attention_shapes():
+        q, k, v = qkv_views(S, dev, B=B, seed=S)
         scale = 1.0 / 8.0
         o, lse = attention.flash_attention_fwd(q, k, v, scale)
         torch.cuda.synchronize()
@@ -125,18 +185,61 @@ def check_flash_kernel(dev) -> list[dict]:
         err_o = (o.float() - o_ref.float()).abs().max().item()
         err_lse = (lse - lse_ref).abs().max().item()
         finite = bool(torch.isfinite(o.float()).all() and torch.isfinite(lse).all())
-        iters = 200 if S <= 512 else 50
+        iters = 200 if B * S <= 512 else 50
         ms = time_ms(lambda: attention.flash_attention_fwd(q, k, v, scale), iters)
         plain_ms = time_ms(lambda: attention.flash_attention_fwd_reference(q, k, v, scale), 10)
         library_ms = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale), iters
         )
-        bound_ms, bound_by = flash_bound_ms(1, 12, S, 64)
-        row = dict(S=S, max_abs_err=err_o, max_abs_err_lse=err_lse, ms=ms, plain_ms=plain_ms,
-                   bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        bound_ms, bound_by = flash_bound_ms(B, 12, S, 64)
+        row = dict(B=B, S=S, max_abs_err=err_o, max_abs_err_lse=err_lse, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
         log("flash_fwd", json.dumps(row))
         if not finite or err_o > O_TOL or err_lse > LSE_TOL:
-            raise AssertionError(f"flash_fwd disagrees with its plain version at S={S}: {row}")
+            raise AssertionError(f"flash_fwd disagrees with its plain version at B={B} S={S}: {row}")
+        rows.append(row)
+    return rows
+
+
+def check_flash_bwd_kernel(dev) -> list[dict]:
+    """The backward kernel against its plain version on the forward
+    kernel's (o, lse), with strided q/k/v and a [B, S, H, D]-laid dO; and
+    twice on the same inputs, which must give bit-equal gradients."""
+    rows = []
+    for B, S in attention_shapes():
+        q, k, v = qkv_views(S, dev, B=B, seed=S)
+        do = grad_out(S, dev, B=B, seed=S)
+        scale = 1.0 / 8.0
+        o, lse = attention.flash_attention_fwd(q, k, v, scale)
+        got = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        again = attention.flash_attention_bwd(q, k, v, o, lse, do, scale)
+        torch.cuda.synchronize()
+        want = attention.flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+        abs_err = [(g.float() - w.float()).abs().max().item() for g, w in zip(got, want)]
+        rel_err = [e / w.float().abs().max().item() for e, w in zip(abs_err, want)]
+        finite = all(bool(torch.isfinite(g.float()).all()) for g in got)
+        deterministic = all(torch.equal(a, b) for a, b in zip(got, again))
+        iters = 200 if B * S <= 512 else 50
+        ms = time_ms(lambda: attention.flash_attention_bwd(q, k, v, o, lse, do, scale), iters)
+        plain_ms = time_ms(
+            lambda: attention.flash_attention_bwd_reference(q, k, v, o, lse, do, scale), 5
+        )
+        # The library's backward alone, on a graph built once.
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        out = F.scaled_dot_product_attention(*leaves, is_causal=True, scale=scale)
+        library_ms = time_ms(
+            lambda: torch.autograd.grad(out, leaves, do, retain_graph=True), iters
+        )
+        del out
+        bound_ms, bound_by = flash_bwd_bound_ms(B, 12, S, 64)
+        row = dict(B=B, S=S, max_abs_err=max(abs_err), max_rel_err=max(rel_err),
+                   rel_err_dq_dk_dv=rel_err, deterministic=deterministic, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                   library_ms=library_ms)
+        log("flash_bwd", json.dumps(row))
+        if not finite or not deterministic or max(rel_err) > BWD_TOL:
+            raise AssertionError(f"flash_bwd disagrees with its plain version at B={B} S={S}: {row}")
         rows.append(row)
     return rows
 
@@ -165,7 +268,7 @@ def serve_engine(rng) -> dict:
     }
     hits0 = engine.stats["prefix_hits"]
     ttft0 = len(engine._ttft_window)
-    attention.flash_fwd_launches = 0  # zeroed just before the main path
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
     t0 = time.perf_counter()
     for rid, p in prompts.items():
         engine.add_request(rid, p, SamplingParams(max_tokens=MAX_TOKENS))
@@ -183,6 +286,7 @@ def serve_engine(rng) -> dict:
             decode_tokens += engine.stats["tokens_generated"] - before
     wall_s = time.perf_counter() - t0
     launches = attention.flash_fwd_launches  # read just after
+    bwd_launches = attention.flash_bwd_launches
     engine.pop_finished()
 
     hits = engine.stats["prefix_hits"] - hits0
@@ -195,6 +299,7 @@ def serve_engine(rng) -> dict:
         assert all(0 <= t < cfg.vocab_size for t in r.generated), rid
     assert hits == 1, f"expected one prefix hit (shared_b), got {hits}"
     assert launches == cfg.n_layer * fresh, (launches, fresh)
+    assert bwd_launches == 0, bwd_launches  # serving runs no backward
     ttft_ms = [round(v * 1e3, 3) for _, v in list(engine._ttft_window)[ttft0:]]
 
     # One request alone on the idle engine: its TTFT is its own prefill.
@@ -203,7 +308,8 @@ def serve_engine(rng) -> dict:
     engine.pop_finished()
     alone_ttft_ms = engine._ttft_window[-1][1] * 1e3
     return dict(
-        engine=engine, launches=launches, fresh_prefills=fresh, prefix_hits=hits,
+        engine=engine, launches=launches, bwd_launches=bwd_launches, fresh_prefills=fresh,
+        prefix_hits=hits,
         steps=steps, wall_s=wall_s, ttft_ms_in_admission_order=ttft_ms,
         ttft_ms_alone_1000=alone_ttft_ms,
         decode_tok_s=decode_tokens / decode_s if decode_s else 0.0,
@@ -247,36 +353,63 @@ def check_first_token_logits(engine, prompt, first_token) -> dict:
                 argmax_equal=int(out["cuda"].argmax()) == int(out["plain"].argmax()))
 
 
-def profile_engine(engine, rng) -> dict:
-    """Where a step's time goes: wall time, device
-    busy time and share, and the heaviest kernels, from torch.profiler over
-    (a) one step that prefills a 1000-token prompt on an idle engine and
-    decodes it once, and (b) 8 decode steps with 6 requests in flight."""
+# Device kernels by kind, from the first matching substring of their names.
+KERNEL_KINDS = (
+    ("flash_fwd", "flash_fwd"), ("flash_bwd", "flash_bwd"),
+    ("gemm", "nvjet"), ("gemm", "gemm"), ("gemm", "cutlass"), ("gemm", "xmma"),
+    ("memcpy", "Memcpy"), ("memcpy", "Memset"),
+    ("reduce", "reduce_kernel"), ("softmax", "softmax"),
+    ("elementwise", "elementwise"), ("elementwise", "copy_kern"),
+)
+
+
+def kernel_kind(name: str) -> str:
+    return next((kind for kind, key in KERNEL_KINDS if key in name), "other")
+
+
+def profile_window(run, steps: int) -> dict:
+    """Wall time, device busy time and share, and the heaviest kernels of
+    ``steps`` calls of ``run``, from torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    ids = lambda n: rng.integers(0, 50257, n).tolist()  # noqa: E731
-
-    def window(steps: int) -> dict:
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            run()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(steps):
-                engine.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        by_name: dict = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                ms, n = by_name.get(e.name, (0.0, 0))
-                by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
-        device_ms = sum(ms for ms, _ in by_name.values())
-        top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:8]
-        return dict(
-            steps=steps, wall_ms=wall_ms, device_ms=device_ms,
-            busy_share=device_ms / wall_ms if wall_ms else None,
-            top_kernels=[dict(name=k[:80], ms=ms, calls=n) for k, (ms, n) in top],
-        )
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    device_ms = sum(ms for ms, _ in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:10]
+    by_kind: dict = {}
+    for name, (ms, n) in by_name.items():
+        kind_ms, kind_n = by_kind.get(kernel_kind(name), (0.0, 0))
+        by_kind[kernel_kind(name)] = (kind_ms + ms, kind_n + n)
+    host = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)[:6]
+    return dict(
+        steps=steps, wall_ms=wall_ms, device_ms=device_ms,
+        busy_share=device_ms / wall_ms if wall_ms else None,
+        device_kernels=sum(n for _, n in by_name.values()),
+        device_ms_by_kind={k: dict(ms=ms, calls=n) for k, (ms, n) in
+                           sorted(by_kind.items(), key=lambda kv: -kv[1][0])},
+        top_kernels=[dict(name=k[:80], ms=ms, calls=n) for k, (ms, n) in top],
+        top_host_ops=[dict(name=e.key[:60], self_ms=e.self_cpu_time_total / 1e3, calls=e.count)
+                      for e in host],
+    )
+
+
+def profile_engine(engine, rng) -> dict:
+    """Where a step's time goes, over (a) one step that prefills a
+    1000-token prompt on an idle engine and decodes it once, and (b) 8
+    decode steps with 6 requests in flight."""
+    ids = lambda n: rng.integers(0, 50257, n).tolist()  # noqa: E731
+    window = functools.partial(profile_window, engine.step)
 
     engine.add_request("prof-prefill", ids(1000), SamplingParams(max_tokens=2))
     prefill = window(1)
@@ -292,6 +425,116 @@ def profile_engine(engine, rng) -> dict:
     return dict(prefill_1000=prefill, decode_6_active=decode)
 
 
+def loss_and_grad_norm(cfg, params, batch) -> tuple[float, float]:
+    """One forward and backward of ``loss_fn``: the loss and the global
+    gradient norm over every parameter."""
+    loss, _ = gpt2.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, spmd.tree_leaves(params))
+    norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
+    return loss.item(), norm.item()
+
+
+def train_config() -> "gpt2.GPT2Config":
+    """GPT-2-125M at full width as bench.py's first candidate trains it:
+    loss_chunk=0, the default remat="mlp", bf16 activations, f32 masters."""
+    cfg = dataclasses.replace(gpt2.GPT2Config.gpt2_125m(), loss_chunk=0)
+    assert (cfg.n_layer, cfg.n_head, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.max_seq) == (
+        12, 12, 768, 3072, 50304, TRAIN_S
+    ), cfg
+    assert cfg.remat == "mlp" and cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
+    return cfg
+
+
+def train_gpt2(dev, cfg) -> dict:
+    """The training path on one GPU: make_train_step over loss_fn with
+    default_optimizer, driven as bench.py drives the JAX step (batch
+    [TRAIN_B, max_seq], targets = tokens rolled by one)."""
+    g = torch.Generator(device=dev).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, cfg.max_seq), generator=g, device=dev)
+    batch = {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
+    opt = spmd.default_optimizer(warmup_steps=2, total_steps=20)
+    state = spmd.make_train_state(
+        functools.partial(gpt2.init_params, cfg=cfg, device=dev), opt,
+        torch.Generator(device=dev).manual_seed(0), device=dev,
+    )
+
+    # One step from the initial params through the kernels, through the
+    # plain attention (bf16, and f32 for bf16's own noise floor), and with
+    # the chunked loss.
+    params = state["params"]
+    checks = {
+        "kernel": loss_and_grad_norm(cfg, params, batch),
+        "plain": loss_and_grad_norm(dataclasses.replace(cfg, attn_impl="reference"), params, batch),
+        "plain_f32": loss_and_grad_norm(
+            dataclasses.replace(cfg, attn_impl="reference", dtype=torch.float32), params, batch
+        ),
+        "loss_chunk_128": loss_and_grad_norm(dataclasses.replace(cfg, loss_chunk=128), params, batch),
+    }
+    (l_k, n_k), (l_p, n_p), (l_32, n_32) = checks["kernel"], checks["plain"], checks["plain_f32"]
+    loss_tol = max(2 * abs(l_p - l_32), TRAIN_LOSS_TOL)
+    gnorm_tol = max(2 * abs(n_p - n_32) / n_32, TRAIN_GNORM_TOL)
+    for name in ("plain", "loss_chunk_128"):
+        l_x, n_x = checks[name]
+        assert abs(l_k - l_x) <= loss_tol, f"loss: kernel {l_k} vs {name} {l_x} (tol {loss_tol})"
+        assert abs(n_k - n_x) / n_x <= gnorm_tol, f"grad norm: kernel {n_k} vs {name} {n_x}"
+    log("train checks", json.dumps(checks))
+
+    step = spmd.make_train_step(functools.partial(gpt2.loss_fn, cfg=cfg), opt)
+    losses = []
+    for _ in range(WARMUP_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
+    t0 = time.perf_counter()
+    for _ in range(TIMED_STEPS):
+        state, metrics = step(state, batch)
+        losses.append(metrics["loss"])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"flash_fwd": attention.flash_fwd_launches,  # read just after
+                "flash_bwd": attention.flash_bwd_launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [x.item() for x in losses]
+
+    policy = gpt2.remat_policy(cfg, tokens)
+    per_step = {"flash_fwd": cfg.n_layer * (2 if policy in ("full", "dots") else 1),
+                "flash_bwd": cfg.n_layer}
+    assert policy == "mlp", policy
+    assert launches == {k: n * TIMED_STEPS for k, n in per_step.items()}, launches
+    assert all(math.isfinite(x) for x in losses), losses
+    assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
+    assert state["step"] == WARMUP_STEPS + TIMED_STEPS
+    return dict(
+        batch=list(tokens.shape), remat=policy, loss_chunk=cfg.loss_chunk, checks=checks,
+        loss_tol=loss_tol, gnorm_tol=gnorm_tol, launches=launches, launches_per_step=per_step,
+        timed_steps=TIMED_STEPS, seconds=seconds, ms_per_step=1e3 * seconds / TIMED_STEPS,
+        tok_s=tokens.numel() * TIMED_STEPS / seconds, peak_mem_gb=peak_gb, losses=losses,
+        profile_one_step=profile_window(lambda: step(state, batch), 1),
+    )
+
+
+def kernel_entry(name, built, rows, head, launches_by_path, replaces) -> dict:
+    return {
+        "name": name,
+        "route": "cuda",
+        "source": f"ray_tpu_torch/ops/csrc/{name}.cu",
+        "replaces": replaces,
+        "launches": sum(launches_by_path.values()),
+        "launches_by_path": launches_by_path,
+        "shape": [head["B"], 12, head["S"], 64],
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "build_s": built[name].seconds,
+        "by_shape": rows,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device; the port's smoke run needs an H100")
@@ -300,35 +543,32 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    built = _build.build("flash_fwd")
-    log(f"--- nvcc {built.name}.cu ({built.seconds:.2f} s)\n{built.log.strip()}")
+    built = build_kernels()
 
-    rows = check_flash_kernel(dev)
+    fwd_rows = check_flash_kernel(dev)
+    bwd_rows = check_flash_bwd_kernel(dev)
     run = serve_engine(np.random.default_rng(0))
     engine = run.pop("engine")
     logits = check_first_token_logits(engine, run.pop("prompt"), run["first_tokens"]["p300"])
     print(json.dumps({"engine": run, "first_token_logits": logits}), flush=True)
     print(json.dumps({"profile": profile_engine(engine, np.random.default_rng(1))}), flush=True)
+    del engine
+    torch.cuda.empty_cache()
 
-    head = next(r for r in rows if r["S"] == HEADLINE_S)
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:72",
-        "launches": run["launches"],
-        "shape": [1, 12, HEADLINE_S, 64],
-        "max_abs_err": max(r["max_abs_err"] for r in rows),
-        "max_abs_err_lse": max(r["max_abs_err_lse"] for r in rows),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-        "build_s": built.seconds,
-        "by_shape": rows,
-    }]
-    print(json.dumps({"kernels": kernels}), flush=True)
+    train = train_gpt2(dev, train_config())
+    print(json.dumps({"train": train}), flush=True)
+
+    fwd_head = next(r for r in fwd_rows if (r["B"], r["S"]) == (1, HEADLINE_S))
+    bwd_head = next(r for r in bwd_rows if (r["B"], r["S"]) == (TRAIN_B, TRAIN_S))
+    fwd = kernel_entry("flash_fwd", built, fwd_rows, fwd_head,
+                       {"serve": run["launches"], "train": train["launches"]["flash_fwd"]},
+                       "ray_tpu/ops/attention.py:72")
+    fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
+    bwd = kernel_entry("flash_bwd", built, bwd_rows, bwd_head,
+                       {"serve": run["bwd_launches"], "train": train["launches"]["flash_bwd"]},
+                       "ray_tpu/ops/attention.py:152")
+    bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
+    print(json.dumps({"kernels": [fwd, bwd]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -6,21 +6,32 @@ dim, so a JAX pytree converts key for key (:mod:`ray_tpu_torch.models.convert`).
 Activations run in ``cfg.dtype`` (bf16 by default) and parameters are kept
 in ``cfg.param_dtype`` (f32); each matmul weight is cast to the activation
 dtype where the reference casts it (``.to`` is a no-op on a weight that
-:func:`compute_params` already cast once).
+:func:`compute_params` already cast once). Training passes the f32 masters
+themselves, so each cast is in the graph and gradients reach them.
 
-Not ported yet: mixture-of-experts, pipeline parallelism and ring
-attention (they raise), and the training loss with its remat policies.
+:func:`loss_fn` is the training loss (unchunked, or the chunked
+:func:`ray_tpu_torch.models.common.chunked_lm_loss`), and :func:`hidden`
+applies the reference's remat policies (``cfg.remat``) whenever grad is
+enabled. Not ported yet: mixture-of-experts, pipeline parallelism and ring
+attention (they raise).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
-from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.models.common import chunked_lm_loss
+from ray_tpu_torch.ops.attention import causal_attention, uses_flash_kernel
 from ray_tpu_torch.util.device import resolve_device
 
 Params = dict
@@ -41,7 +52,16 @@ class GPT2Config:
     # own tiles, so these are advisory.
     attn_block_q: int = 512
     attn_block_k: int = 512
+    # Rematerialization in training (read by hidden() when grad is enabled):
+    #   "full"  recompute the whole block in backward
+    #   "dots"  save the weight-matmul outputs, recompute the rest
+    #   "mlp"   attention not checkpointed (the flash kernel's saved o/lse
+    #           serve backward), the MLP checkpointed as "dots"; "dots"
+    #           where the flash kernel is not in use
+    #   "none"  save everything; True/False mean "full"/"none"
     remat: bool | str = "mlp"
+    # LM-head loss: sequence positions per chunk of the rematerialized
+    # logits (0: one unchunked product).
     loss_chunk: int = 128
     pipeline_microbatches: int = 0
     n_experts: int = 0
@@ -198,12 +218,60 @@ def _mlp_sublayer(x, p, cfg: GPT2Config):
     return x + h @ p["fc2_w"].to(cfg.dtype) + p["fc2_b"].to(cfg.dtype)
 
 
+def _block(x, p, cfg: GPT2Config):
+    """One transformer block. x: [B, S, D]; p: one layer's params."""
+    return _mlp_sublayer(_attn_sublayer(x, p, cfg), p, cfg)
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of the weight matmuls (unbatched ``mm``/``addmm``)
+    and recompute everything else, attention's batched products included:
+    the counterpart of ``dots_with_no_batch_dims_saveable``."""
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_context():
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def remat_policy(cfg: GPT2Config, x: torch.Tensor) -> str:
+    """The policy :func:`hidden` applies to activations like ``x``:
+    ``cfg.remat`` with bools resolved, and "mlp" turned into "dots" where
+    attention does not run the flash kernel (the plain path has no saved
+    residuals to keep, and would hold the S x S probabilities of every
+    layer), as at ``ray_tpu/models/gpt2.py:339-352``."""
+    remat = {True: "full", False: "none"}.get(cfg.remat, cfg.remat)
+    if remat not in ("full", "dots", "mlp", "none"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if remat == "mlp" and not uses_flash_kernel(x, impl=cfg.attn_impl):
+        remat = "dots"
+    return remat
+
+
+def _remat_block(x, p, cfg: GPT2Config, remat: str):
+    ckpt = functools.partial(checkpoint, use_reentrant=False)
+    if remat == "full":
+        return ckpt(_block, x, p, cfg)
+    if remat == "dots":
+        return ckpt(_block, x, p, cfg, context_fn=_dots_context)
+    if remat == "mlp":
+        # Attention stays outside the checkpoint, so the flash Function's
+        # saved (q, k, v, o, lse) survive to backward and the forward
+        # kernel never re-runs there.
+        return ckpt(_mlp_sublayer, _attn_sublayer(x, p, cfg), p, cfg, context_fn=_dots_context)
+    return _block(x, p, cfg)
+
+
 def hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh=None) -> torch.Tensor:
     """tokens [B, S] int -> final-LN hidden states [B, S, d_model].
 
-    ``mesh`` is the reference's: a mesh with an ``sp`` or ``pp`` axis
-    selects ring attention or the GPipe pipeline there. Neither is ported,
-    so any mesh raises."""
+    With grad enabled each block runs under ``cfg.remat``
+    (:func:`remat_policy`); without it, as it is. ``mesh`` is the
+    reference's: a mesh with an ``sp`` or ``pp`` axis selects ring attention
+    or the GPipe pipeline there. Neither is ported, so any mesh raises."""
     _check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError(
@@ -212,9 +280,14 @@ def hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh=None) -> 
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens]
     x = x + params["wpe"].to(cfg.dtype)[:S][None]
+    remat = remat_policy(cfg, x)  # raises on an unknown policy, as the reference does
+    if not torch.is_grad_enabled():
+        remat = "none"  # nothing to save for a backward: run each block as it is
+    # One unbind per stacked leaf: its backward is one stack, where indexing
+    # layer by layer would allocate a full-size zero gradient per layer.
+    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
     for i in range(cfg.n_layer):
-        p = layer_params(params, i)
-        x = _mlp_sublayer(_attn_sublayer(x, p, cfg), p, cfg)
+        x = _remat_block(x, {k: v[i] for k, v in layers.items()}, cfg, remat)
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
 
 
@@ -222,6 +295,33 @@ def forward(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh=None) ->
     """tokens [B, S] int -> logits [B, S, vocab] (activation dtype).
     Tied embeddings: logits = x @ wte^T."""
     return hidden(params, tokens, cfg, mesh) @ params["wte"].to(cfg.dtype).T
+
+
+def loss_fn(params: Params, batch: dict, cfg: GPT2Config, mesh=None) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy: ``(loss, {"loss", "tokens"})``. batch:
+    ``{"tokens": [B, S+1]}`` or ``{"tokens": [B, S], "targets": [B, S]}``.
+
+    With ``cfg.loss_chunk`` and S past it, the loss is the chunked one with
+    f32 logits from bf16 operands. Otherwise the logits are one product in
+    the activation dtype, upcast to f32 (``ray_tpu/models/gpt2.py:432-439``).
+    The metrics stay on the device."""
+    tokens = batch["tokens"]
+    if "targets" in batch:
+        inputs, targets = tokens, batch["targets"]
+    else:
+        inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    targets = targets.long()
+    x = hidden(params, inputs, cfg, mesh)
+    head = params["wte"].to(cfg.dtype)
+    if cfg.loss_chunk and inputs.shape[1] > cfg.loss_chunk:
+        ce = chunked_lm_loss(x, head, targets, cfg.loss_chunk) / targets.numel()
+    else:
+        logits = (x @ head.T).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = logits.gather(-1, targets[..., None])[..., 0]
+        ce = (lse - tgt).mean()
+    tokens_n = torch.full((), targets.numel(), dtype=torch.int32, device=ce.device)
+    return ce, {"loss": ce.detach(), "tokens": tokens_n}
 
 
 def num_params(cfg: GPT2Config) -> int:

@@ -1,21 +1,27 @@
-"""Causal self-attention: a hand-written CUDA flash forward on Hopper, plain
+"""Causal self-attention: hand-written CUDA flash kernels on Hopper, plain
 PyTorch on the CPU. Port of ``ray_tpu/ops/attention.py``.
 
 The contract is the reference's: ``[B, H, S, D]`` tensors, causal mask,
-f32 softmax statistics. Two plain versions live here:
+f32 softmax statistics. Three plain versions live here:
 
 - :func:`_reference_causal_attention` is the reference's plain path
   (f32 scores, mask value -1e30, softmax cast to the v dtype);
 - :func:`flash_attention_fwd_reference` is the same function as the
-  kernel, returning ``(o, lse)``. Like the TPU kernel it pre-scales q by
-  ``scale * log2(e)`` in f32 and rounds it back to q's dtype, and its
+  forward kernel, returning ``(o, lse)``. Like the TPU kernel it pre-scales
+  q by ``scale * log2(e)`` in f32 and rounds it back to q's dtype, and its
   log-sum-exp is in **base 2** (``lse = max + log2(sum exp2(s - max))``),
-  ``[B, H, S, 1]`` f32. The kernel uses the same base.
+  ``[B, H, S, 1]`` f32. The kernel uses the same base;
+- :func:`flash_attention_bwd_reference` is the same function as the
+  backward kernel: ``(dq, dk, dv)`` from the forward's residuals
+  ``(q, k, v, o, lse)`` and the output gradient, with the TPU kernel's
+  rounding points.
 
-Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel (``csrc/flash_fwd.cu``) or raises if the kernel cannot take it.
-Nothing falls back quietly. The kernel is forward only: the backward is
-later work, so the kernel path raises on inputs that require grad.
+:func:`flash_attention` is the differentiable flash path: a
+``torch.autograd.Function`` whose forward saves exactly the reference's
+residuals (``ray_tpu/ops/attention.py:282-286``) and whose backward is the
+backward kernel. Dispatch: a CPU tensor takes the plain versions; a CUDA
+tensor launches the kernels (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``)
+or raises if a kernel cannot take it. Nothing falls back quietly.
 """
 
 from __future__ import annotations
@@ -31,9 +37,10 @@ from ray_tpu_torch.ops import _build
 _NEG_INF = -1e30
 _LOG2E = 1.4426950408889634
 
-# Launches of the CUDA flash forward kernel in this process. The wrapper
-# adds one per launch and nowhere else; a run resets it to read its own.
+# Launches of the CUDA flash kernels in this process. Each wrapper adds one
+# per launch and nowhere else; a run resets them to read its own.
 flash_fwd_launches = 0
+flash_bwd_launches = 0
 
 
 def _causal_mask(S_q: int, S_k: int, device) -> torch.Tensor:
@@ -68,35 +75,78 @@ def flash_attention_fwd_reference(q, k, v, scale):
     return o.to(q.dtype), m + torch.log2(l)
 
 
+def flash_attention_bwd_reference(q, k, v, o, lse, do, scale):
+    """Plain version of the backward kernel: ``(dq, dk, dv)``.
+
+    The TPU kernel's rounding points are kept (``ray_tpu/ops/attention.py``
+    ``:152-227``, and delta at ``:237-239``): delta = rowsum(dO * O) in f32;
+    q pre-scaled by ``scale * log2(e)`` and rounded to q's dtype; scores in
+    f32 masked with -1e30; ``p = exp2(s - lse)`` from the forward's base-2
+    lse; p rounded to the input dtype before ``p^T dO``; dS rounded before
+    ``dS^T q`` and ``dS k``; dK and dQ multiplied by ``scale`` in f32, then
+    cast. In f32 every rounding is a no-op.
+    """
+    delta = (do.float() * o.float()).sum(dim=-1, keepdim=True)
+    qs = (q.float() * (scale * _LOG2E)).to(q.dtype)
+    s = torch.einsum("bhqd,bhkd->bhqk", qs.float(), k.float())
+    s = torch.where(_causal_mask(q.shape[2], k.shape[2], q.device), s, _NEG_INF)
+    p = torch.exp2(s - lse)
+    dv = torch.einsum("bhqk,bhqd->bhkd", p.to(do.dtype).float(), do.float())
+    dp = torch.einsum("bhqd,bhkd->bhqk", do.float(), v.float())
+    ds = (p * (dp - delta)).to(q.dtype).float()
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 _KERNEL_D = 64
 
 
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+# C signatures of the kernels' launch functions, by library name.
+_SIGNATURES = {
+    "flash_fwd": [_P] * 5 + [_I] * 4 + [_LL] * 12 + [_F, _P],
+    "flash_bwd": [_P] * 10 + [_I] * 4 + [_LL] * 24 + [_F, _F, _P],
+}
+
+
 @functools.cache
-def _lib():
-    """The kernel's library, built on first use, with its C signatures."""
-    lib = _build.load("flash_fwd")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.flash_fwd_bf16.argtypes = [p, p, p, p, p, i, i, i, i] + [ll] * 12 + [ctypes.c_float, p]
-    lib.flash_fwd_bf16.restype = i
-    lib.flash_fwd_error_string.argtypes = [i]
-    lib.flash_fwd_error_string.restype = ctypes.c_char_p
+def _lib(name: str):
+    """A kernel's library, built on first use, with its C signatures."""
+    lib = _build.load(name)
+    launch, error_string = getattr(lib, f"{name}_bf16"), getattr(lib, f"{name}_error_string")
+    launch.argtypes = _SIGNATURES[name]
+    launch.restype = _I
+    error_string.argtypes = [_I]
+    error_string.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on_error(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = getattr(_lib(name), f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} (cuda error {rc})")
 
 
 def _is_hopper(device: torch.device) -> bool:
     return torch.cuda.get_device_capability(device) == (9, 0)
 
 
-def _check_kernel_inputs(q, k, v) -> None:
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise RuntimeError(
-            "the CUDA flash kernel is forward only (its backward is not ported "
-            "yet); pass tensors that do not require grad, or impl='reference'"
-        )
-    if not (q.shape == k.shape == v.shape):
-        raise ValueError(f"q/k/v shapes differ: {q.shape}, {k.shape}, {v.shape}")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must be on one device")
+def _kernel_layout_ok(t: torch.Tensor) -> bool:
+    """Rows contiguous and 16-byte aligned, as the kernels' vector loads need."""
+    return t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
+
+
+def _check_kernel_inputs(q, **others) -> None:
+    """Raise unless the kernels take q and the named tensors: one shape, one
+    device (an sm_90 card), bf16, head_dim 64, aligned rows. Tensors that
+    require grad are fine: inside the autograd Function's forward q, k and
+    v still carry ``requires_grad``."""
+    named = {"q": q, **others}
+    if any(t.shape != q.shape for t in named.values()):
+        raise ValueError(f"flash kernel input shapes differ: { {n: tuple(t.shape) for n, t in named.items()} }")
+    if any(t.device != q.device for t in named.values()):
+        raise ValueError("the flash kernel's inputs must be on one device")
     if not _is_hopper(q.device):
         cap = torch.cuda.get_device_capability(q.device)
         raise RuntimeError(f"the flash kernel is built for sm_90a; device is sm_{cap[0]}{cap[1]}")
@@ -105,10 +155,10 @@ def _check_kernel_inputs(q, k, v) -> None:
         raise ValueError(f"the flash kernel takes head_dim {_KERNEL_D}, got {D}")
     if S < 1 or B > 65535 or H > 65535:
         raise ValueError(f"the flash kernel cannot take shape {tuple(q.shape)}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
+    for name, t in named.items():
         if t.dtype != torch.bfloat16:
             raise TypeError(f"the flash kernel takes bfloat16, got {name}.dtype={t.dtype}")
-        if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+        if not _kernel_layout_ok(t):
             raise ValueError(
                 f"the flash kernel needs {name} rows contiguous and 16-byte aligned "
                 f"(strides {t.stride()})"
@@ -117,26 +167,56 @@ def _check_kernel_inputs(q, k, v) -> None:
 
 def _flash_fwd_cuda(q, k, v, scale):
     global flash_fwd_launches
-    _check_kernel_inputs(q, k, v)
+    _check_kernel_inputs(q, k=k, v=v)
     B, H, S, D = q.shape
     # O is laid out [B, S, H, D] and returned as its [B, H, S, D] view, so
     # the caller's merge of the heads back into d_model is a free reshape.
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
     lse = torch.empty((B, H, S, 1), dtype=torch.float32, device=q.device)
-    lib = _lib()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = lib.flash_fwd_bf16(
+        rc = _lib("flash_fwd").flash_fwd_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             B, H, S, D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
             float(scale * _LOG2E), stream,
         )
-    if rc != 0:
-        msg = lib.flash_fwd_error_string(rc).decode()
-        raise RuntimeError(f"flash_fwd launch failed: {msg} (cuda error {rc})")
+    _raise_on_error("flash_fwd", rc)
     flash_fwd_launches += 1
     return o, lse
+
+
+def _flash_bwd_cuda(q, k, v, o, lse, do, scale):
+    global flash_bwd_launches
+    if not _kernel_layout_ok(do):
+        # Autograd may hand over an expanded or transposed gradient (the
+        # gradient of a sum has zero strides). The training path's dO, laid
+        # out as O's [B, S, H, D] storage, is taken as it is, with no copy.
+        do = do.contiguous()
+    _check_kernel_inputs(q, k=k, v=v, o=o, dO=do)
+    B, H, S, D = q.shape
+    if lse.shape != (B, H, S, 1) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous f32 [B, H, S, 1], got {tuple(lse.shape)}")
+    # dq, dk, dv are laid out [B, S, H, D] like O, so the gradient's way
+    # back through the head split into the QKV projection is a free reshape.
+    dq, dk, dv = (
+        torch.empty((B, S, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
+        for _ in range(3)
+    )
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = _lib("flash_bwd").flash_bwd_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, S, D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            *do.stride()[:3], *dq.stride()[:3], *dk.stride()[:3], *dv.stride()[:3],
+            float(scale), float(scale * _LOG2E), stream,
+        )
+    _raise_on_error("flash_bwd", rc)
+    flash_bwd_launches += 1
+    return dq, dk, dv
 
 
 def flash_attention_fwd(q, k, v, scale):
@@ -145,6 +225,39 @@ def flash_attention_fwd(q, k, v, scale):
     if q.is_cuda:
         return _flash_fwd_cuda(q, k, v, scale)
     return flash_attention_fwd_reference(q, k, v, scale)
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, scale):
+    """``(dq, dk, dv)``: the CUDA kernel for a CUDA tensor, the plain
+    version for a CPU tensor."""
+    if q.is_cuda:
+        return _flash_bwd_cuda(q, k, v, o, lse, do, scale)
+    return flash_attention_bwd_reference(q, k, v, o, lse, do, scale)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The counterpart of the reference's ``custom_vjp`` (``:276-296``): the
+    forward saves ``(q, k, v, o, lse)`` and the backward recomputes the
+    probabilities from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
+def flash_attention(q, k, v, scale):
+    """Differentiable causal flash attention over ``[B, H, S, D]``: the CUDA
+    kernels for CUDA tensors, their plain versions for CPU tensors."""
+    return _FlashAttention.apply(q, k, v, scale)
 
 
 def uses_flash_kernel(x: torch.Tensor, *, impl: str = "auto") -> bool:
@@ -186,4 +299,4 @@ def causal_attention(
         raise ValueError(f"unknown attention impl {impl!r}")
     if not q.is_cuda:
         raise ValueError("impl='cuda' needs CUDA tensors; use impl='reference' on the CPU")
-    return _flash_fwd_cuda(q, k, v, scale)[0]
+    return flash_attention(q, k, v, scale)

@@ -7,6 +7,7 @@ reaches the CUDA kernel). Tolerance: rtol=atol=1e-4 in f32, the JAX suite's
 own for interpret-vs-reference.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -90,3 +91,48 @@ def test_cpu_tensor_never_reaches_the_kernel():
         pt_attn.causal_attention(q, q, q, impl="pallas")
     pt_attn.causal_attention(q, q, q)
     assert pt_attn.flash_fwd_launches == before
+
+
+@pytest.mark.parametrize("S,D,block_q,block_k", CASES)
+def test_flash_attention_gradients_match_pallas_interpret(S, D, block_q, block_k):
+    """jax.grad through the Pallas flash kernels (interpret mode) against
+    torch.autograd through the port's flash Function, which runs the plain
+    forward and backward for CPU tensors."""
+    q, k, v = _inputs(200 + S, 1, 2, S, D)
+    do = np.random.default_rng(300 + S).standard_normal(q.shape, dtype=np.float32)
+
+    def jflash(q, k, v):
+        return jax_attn.causal_attention(
+            q, k, v, impl="pallas", block_q=block_q, block_k=block_k, interpret=True
+        )
+
+    _, vjp = jax.vjp(jflash, *map(jnp.asarray, (q, k, v)))
+    want = vjp(jnp.asarray(do))
+    tq, tk, tv = (torch.tensor(a, requires_grad=True) for a in (q, k, v))
+    before = (pt_attn.flash_fwd_launches, pt_attn.flash_bwd_launches)
+    o = pt_attn.flash_attention(tq, tk, tv, 1.0 / np.sqrt(D))
+    got = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    assert (pt_attn.flash_fwd_launches, pt_attn.flash_bwd_launches) == before
+    for name, g, w in zip("qkv", got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), err_msg=f"d{name}", **TOL)
+
+
+@pytest.mark.parametrize("S", [64, 100])
+def test_flash_bwd_reference_matches_autograd(S):
+    """The plain twin of the backward kernel, fed the forward's (o, lse),
+    against autograd through the reference's plain attention."""
+    q, k, v = _inputs(400 + S, 2, 2, S, 16)
+    do = np.random.default_rng(500 + S).standard_normal(q.shape, dtype=np.float32)
+    scale = 0.25
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = pt_attn.flash_attention_fwd_reference(tq, tk, tv, scale)
+    got = pt_attn.flash_attention_bwd_reference(tq, tk, tv, o, lse, tdo, scale)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    ref = pt_attn._reference_causal_attention(*leaves, scale)
+    want = torch.autograd.grad(ref, leaves, tdo)
+    for name, g, w in zip("qkv", got, want):
+        assert g.shape == w.shape and g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), w.numpy(), err_msg=f"d{name}", **TOL)
+    # flash_attention_bwd on a CPU tensor is the same plain version.
+    for g, w in zip(pt_attn.flash_attention_bwd(tq, tk, tv, o, lse, tdo, scale), got):
+        assert torch.equal(g, w)
