@@ -40,9 +40,12 @@ import dataclasses
 import functools
 import json
 import math
+import re
+import shutil
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -145,6 +148,40 @@ def build_kernels() -> dict:
     for b in built.values():
         log(f"--- nvcc {b.name}.cu ({b.seconds:.2f} s)\n{b.log.strip()}")
     return built
+
+
+# SASS opcodes that show what a kernel executes: HGMMA (wgmma), UTMALDG and
+# UTMASTG (TMA loads and stores), SYNCS (mbarrier operations), HMMA (mma.sync).
+SASS_OPS = ("HGMMA", "UTMALDG", "UTMASTG", "SYNCS", "HMMA")
+
+
+def parse_sass(text: str) -> dict:
+    """Count SASS_OPS in each kernel function of a ``cuobjdump -sass`` listing."""
+    counts: dict = {}
+    fn = None
+    for line in text.splitlines():
+        if "Function :" in line:
+            mangled = line.split("Function :")[1].strip()
+            m = re.search(r"(flash_[a-z_]+_kernel)", mangled)
+            fn = m[1] if m else mangled
+            counts[fn] = dict.fromkeys(SASS_OPS, 0)
+        elif fn is not None:
+            op = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)", line)
+            if op and op[1] in counts[fn]:
+                counts[fn][op[1]] += 1
+    return counts
+
+
+def sass_counts(lib: Path) -> dict | str:
+    """Instructions of each kind in each kernel function of a built library,
+    from ``cuobjdump -sass``; "not available" without the tool."""
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc_path()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return "not available"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return "not available"
+    return parse_sass(out.stdout)
 
 
 def flash_bound_ms(B, H, S, D) -> tuple[float, str]:
@@ -530,6 +567,8 @@ def kernel_entry(name, built, rows, head, launches_by_path, replaces) -> dict:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "sass": sass_counts(built[name].path),
+        "tiles": [dict(B=r["B"], S=r["S"], **attention.kernel_tile_rows(name)) for r in rows],
         "build_s": built[name].seconds,
         "by_shape": rows,
     }

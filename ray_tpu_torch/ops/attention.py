@@ -117,9 +117,26 @@ def _lib(name: str):
     launch, error_string = getattr(lib, f"{name}_bf16"), getattr(lib, f"{name}_error_string")
     launch.argtypes = _SIGNATURES[name]
     launch.restype = _I
+    tile_rows = getattr(lib, f"{name}_tile_rows")
+    tile_rows.argtypes = [ctypes.POINTER(_I)]
+    tile_rows.restype = None
     error_string.argtypes = [_I]
     error_string.restype = ctypes.c_char_p
     return lib
+
+
+# Tile rows a launch reports, by library: the forward's (q rows per CTA,
+# k rows per tile); the backward's dK/dV pass (k rows per CTA, q rows per
+# tile) and dQ pass (q rows per CTA, k rows per tile).
+_TILE_FIELDS = {"flash_fwd": ("q", "k"), "flash_bwd": ("dkdv_k", "dkdv_q", "dq_q", "dq_k")}
+
+
+def kernel_tile_rows(name: str) -> dict[str, int]:
+    """The tile rows of the kernel ``name``, as its C launcher reports them."""
+    fields = _TILE_FIELDS[name]
+    out = (_I * len(fields))()
+    getattr(_lib(name), f"{name}_tile_rows")(out)
+    return dict(zip(fields, out))
 
 
 def _raise_on_error(name: str, rc: int) -> None:
@@ -133,8 +150,12 @@ def _is_hopper(device: torch.device) -> bool:
 
 
 def _kernel_layout_ok(t: torch.Tensor) -> bool:
-    """Rows contiguous and 16-byte aligned, as the kernels' vector loads need."""
-    return t.stride(-1) == 1 and not any(st % 8 for st in t.stride()[:3]) and t.data_ptr() % 16 == 0
+    """Rows contiguous and 16-byte aligned, and every stride of a dim longer
+    than 1 a positive multiple of 16 bytes, as the kernels' TMA copies need."""
+    strides_ok = all(
+        (st > 0 and st % 8 == 0) or n == 1 for st, n in zip(t.stride()[:3], t.shape[:3])
+    )
+    return t.stride(-1) == 1 and strides_ok and t.data_ptr() % 16 == 0
 
 
 def _check_kernel_inputs(q, **others) -> None:
@@ -284,7 +305,9 @@ def causal_attention(
     a CPU tensor), ``"cuda"`` (the kernel; raises on a CPU tensor) or
     ``"reference"`` (the plain path on any device).
     block_q, block_k: accepted for the reference's signature and advisory
-    only; the kernel's tiles are its own (64 x 64).
+    only; the kernels' tiles are their own: 64 q rows a block with 128-row
+    K/V tiles in the forward, 64-row tiles in both backward passes
+    (:func:`kernel_tile_rows`).
     """
     del block_q, block_k
     if q.ndim != 4:

@@ -16,487 +16,443 @@
 // a VMEM scratch from one grid step to the next. CUDA blocks run in
 // parallel, so nothing may carry over between them. Here the work is split
 // in two passes that own disjoint outputs, which makes the result
-// deterministic (no atomics, no zero-initialised f32 buffer):
-//   (a) flash_bwd_delta_kernel: delta, one 8-thread group per row;
-//   (b) flash_bwd_dkdv_kernel: one CTA per (b, h, 64-row k tile). It keeps
-//       K and V in registers and walks the q tiles from the diagonal tile
-//       to the last, accumulating dK and dV in f32 registers;
-//   (c) flash_bwd_dq_kernel: one CTA per (b, h, 64-row q tile). It keeps
-//       Q and dO in registers and walks the k tiles up to the diagonal,
-//       accumulating dQ in f32 registers.
-// s and p are computed twice, once in (b) and once in (c); the TPU kernel
-// computed them once. Only the diagonal tile (and a ragged last tile) pays
-// for the mask.
+// deterministic (no atomics, no zero-initialised f32 buffer; reruns are
+// bit-equal):
+//   (a) flash_bwd_dq_kernel: one CTA per (b, h, 64-row q tile), walking the
+//       64-row k tiles up to the diagonal. It also computes delta for its
+//       rows (from the O and dO tiles it holds) and writes it out;
+//   (b) flash_bwd_dkdv_kernel: one CTA per (b, h, 64-row k tile), walking
+//       the 64-row q tiles from the diagonal to the last, with the delta
+//       that (a) wrote.
+// s and p are computed in both passes: seven products where a fused sweep
+// would do five, and reruns stay bit-equal without ordering any additions.
 //
 // What bounds it on an H100: at the training shape (B=8, H=12, S=1024,
-// D=64) the backward does five products over the S(S+1)/2 causal pairs,
-// 32 GFLOP (33 us at 989 TFLOP/s), against about 100 MB of inputs and
-// outputs (30 us at 3.35 TB/s). It is operations-bound on paper; this
-// simple version (mma.sync m16n8k16, no wgmma, no TMA, no overlap of the
-// exp2 pass with the products, and the recomputation above) runs well
-// below the tensor-core rate.
+// D=64) the five products over the S(S+1)/2 causal pairs are 32 GFLOP (33
+// us at 989 TFLOP/s) against about 100 MB of inputs and outputs (30 us at
+// 3.35 TB/s): operations-bound on paper. The tensor cores reach that rate
+// only through wgmma, fed from shared memory without stalling the threads
+// that do the exponentials.
+//
+// What the design does about it (warp specialisation, TMA, wgmma). Each
+// CTA has one consumer warpgroup and one producer warp; two CTAs share an
+// SM, so that one's exponentials run while the other's products do. The
+// producer issues TMA copies of 64-row boxes into 128-byte-swizzled
+// shared-memory tiles: the CTA's own rows once, then the streamed tiles
+// into a two-stage ring with a full and an empty mbarrier per stage. Rows
+// past S arrive as zeros. Every product is a wgmma with f32 accumulators
+// in registers:
+//   (a) scales its Q tile in place to Qs and streams K and V: S = Qs K^T and
+//       dP = dO V^T with both operands K-major in shared memory, then
+//       dQ += dS K with dS as register A fragments and K read MN-major;
+//   (b) holds K and V in shared memory and streams q, dO (and lse, delta,
+//       which the producer's lanes copy with plain loads: a row of a ragged
+//       S need not start 16-byte aligned). Per q tile (FA3's transposed
+//       form): S^T = K Qs^T and dP^T = V dO^T (Qs: the consumers scale the
+//       q tile into a tile of their own), then P^T and dS^T in registers,
+//       then dV += P^T dO and dK += dS^T q, issued together, with P^T and
+//       dS^T as register A fragments and dO and the unscaled q read
+//       MN-major. (Issuing dV while dS^T was still being computed made
+//       ptxas serialise the products for want of registers, and was slower.)
+// dQ, dK and dV go through shared memory to TMA stores that drop rows past
+// S. Only tiles that cross the diagonal, or hold rows past a ragged S, pay
+// for the mask.
 //
 // Layout: q, k, v, o, dO, dq, dk, dv are [B, H, S, 64] with any batch, head
-// and row strides (in elements) and a unit stride on the last dim; rows
-// must be 16-byte aligned. lse and delta are contiguous f32 [B, H, S].
-// Rows past S load as zeros, are masked and are never stored, so any
-// S >= 1 runs.
+// and row strides (in elements, multiples of 8) and a unit stride on the
+// last dim; rows must be 16-byte aligned. lse and delta are contiguous f32
+// [B, H, S]. Any S >= 1 runs.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kD = 64;        // head dim
-constexpr int kBlock = 64;    // rows per q or k tile (16 per warp)
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kLd = kD + 8;   // smem row pitch: 144 B, conflict-free fragment loads
-constexpr int kTile = kBlock * kLd;
-constexpr int kDeltaRows = kThreads / 8;  // rows per block of the delta kernel
+using namespace hopper;
 
-struct Args {
-  const __nv_bfloat16* q;
-  const __nv_bfloat16* k;
-  const __nv_bfloat16* v;
-  const __nv_bfloat16* o;
-  const __nv_bfloat16* dout;
+constexpr int kD = 64;     // head dim
+constexpr int kTile = 64;  // rows of every q or k tile: one consumer warpgroup's
+constexpr int kTileBytes = kTile * kRowBytes;
+constexpr int kStages = 2;
+constexpr int kThreads = 128 + 32;  // the consumer warpgroup, then the producer warp
+constexpr int kCtasPerSm = 2;       // at most 204 registers a thread
+
+struct BwdParams {
+  CUtensorMap tq, tk, tv, to, tdo, tdq, tdk, tdv;
   const float* lse;
   float* delta;
-  __nv_bfloat16* dq;
-  __nv_bfloat16* dk;
-  __nv_bfloat16* dv;
-  int B, H, S;
-  long long q_sb, q_sh, q_ss;
-  long long k_sb, k_sh, k_ss;
-  long long v_sb, v_sh, v_ss;
-  long long o_sb, o_sh, o_ss;
-  long long do_sb, do_sh, do_ss;
-  long long dq_sb, dq_sh, dq_ss;
-  long long dk_sb, dk_sh, dk_ss;
-  long long dv_sb, dv_sh, dv_ss;
+  int H, S;
   float qscale;  // softmax scale * log2(e)
   float scale;   // softmax scale
 };
 
-__device__ __forceinline__ void mma_bf16_16816(float c[4], const uint32_t a[4],
-                                               uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+// ---- (a) dQ and delta: one CTA per (b, h, 64 q rows) ----
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 16 : 0;  // src-size 0 zero-fills the 16 bytes
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
+namespace dq_pass {
+constexpr int kOffQ = 0;
+constexpr int kOffDo = kOffQ + kTileBytes;
+constexpr int kOffO = kOffDo + kTileBytes;
+constexpr int kOffK = kOffO + kTileBytes;               // [kStages] k tiles
+constexpr int kOffV = kOffK + kStages * kTileBytes;     // [kStages] v tiles
+constexpr int kOffBar = kOffV + kStages * kTileBytes;
+constexpr int kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+}  // namespace dq_pass
 
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  const int n = valid ? 4 : 0;
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem), "r"(n)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Four 8x8 b16 matrices, transposed: with row-major [k][n] tiles in shared
-// memory, r[0], r[1] are the B fragment (k 0..15) of n-tile n0 and r[2],
-// r[3] that of n-tile n0 + 8. `row` points at this lane's row:
-// k = k0 + (lane & 7) + ((lane >> 3) & 1) * 8, n = n0 + (lane >> 4) * 8.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], const __nv_bfloat16* row) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two floats -> bf16x2 with `lo` in the low half (the lower column index).
-__device__ __forceinline__ uint32_t pack_f32(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Copy a 64 x 64 tile of rows [r0, r0 + 64) into smem (pitch kLd) with
-// cp.async; rows at or past S are zero-filled.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                          long long row_stride, int r0, int S, int tid) {
-  for (int c = tid; c < kBlock * kD / 8; c += kThreads) {
-    const int r = c / (kD / 8);
-    const int col = (c % (kD / 8)) * 8;
-    const int row = r0 + r;
-    const bool valid = row < S;
-    cp_async16(&dst[r * kLd + col], src + (valid ? row : 0) * row_stride + col, valid);
-  }
-}
-
-// A fragments (16 rows x 64) of this warp's rows from a smem tile.
-__device__ __forceinline__ void load_a_frags(uint32_t f[kD / 16][4], const __nv_bfloat16* tile,
-                                             int r0, int t) {
-#pragma unroll
-  for (int kk = 0; kk < kD / 16; ++kk) {
-    const int c0 = kk * 16 + 2 * t;
-    f[kk][0] = ld32(&tile[r0 * kLd + c0]);
-    f[kk][1] = ld32(&tile[(r0 + 8) * kLd + c0]);
-    f[kk][2] = ld32(&tile[r0 * kLd + c0 + 8]);
-    f[kk][3] = ld32(&tile[(r0 + 8) * kLd + c0 + 8]);
-  }
-}
-
-// acc[16 x 64] = A[16 x 64] . B^T where B's rows are the 64 rows of a smem
-// tile: the product over the head dim (s = q k^T, dP = dO v^T, and their
-// transposes).
-__device__ __forceinline__ void rows_product(float acc[kBlock / 8][4],
-                                             const uint32_t a[kD / 16][4],
-                                             const __nv_bfloat16* tile, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < kBlock / 8; ++nt) {
-    acc[nt][0] = acc[nt][1] = acc[nt][2] = acc[nt][3] = 0.f;
-    const __nv_bfloat16* br = &tile[(nt * 8 + g) * kLd];
-#pragma unroll
-    for (int kk = 0; kk < kD / 16; ++kk) {
-      mma_bf16_16816(acc[nt], a[kk], ld32(br + kk * 16 + 2 * t), ld32(br + kk * 16 + 2 * t + 8));
-    }
-  }
-}
-
-// acc[16 x 64] += X[16 x 64 tile rows] . tile, where X is held as f32
-// accumulator fragments (rounded to bf16 here) and the tile is row-major
-// [tile row][head dim]: dV += p^T dO, dK += dS^T q, dQ += dS k.
-__device__ __forceinline__ void accumulate_product(float acc[kD / 8][4],
-                                                   const float x[kBlock / 8][4],
-                                                   const __nv_bfloat16* tile, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < kBlock / 16; ++kk) {
-    const uint32_t xa[4] = {
-        pack_f32(x[2 * kk][0], x[2 * kk][1]),
-        pack_f32(x[2 * kk][2], x[2 * kk][3]),
-        pack_f32(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-        pack_f32(x[2 * kk + 1][2], x[2 * kk + 1][3]),
-    };
-    const int row = kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-#pragma unroll
-    for (int dp = 0; dp < kD / 16; ++dp) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, &tile[row * kLd + dp * 16 + (lane >> 4) * 8]);
-      mma_bf16_16816(acc[2 * dp], xa, b[0], b[1]);
-      mma_bf16_16816(acc[2 * dp + 1], xa, b[2], b[3]);
-    }
-  }
-}
-
-// Write this warp's 16 x 64 f32 fragments, times `mul`, as bf16 rows.
-__device__ __forceinline__ void store_rows(__nv_bfloat16* dst, long long row_stride,
-                                           const float acc[kD / 8][4], float mul, int row_a,
-                                           int S, int t) {
-  const int row_b = row_a + 8;
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-    const int c = dt * 8 + 2 * t;
-    if (row_a < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + row_a * row_stride + c) =
-          __floats2bfloat162_rn(acc[dt][0] * mul, acc[dt][1] * mul);
-    }
-    if (row_b < S) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + row_b * row_stride + c) =
-          __floats2bfloat162_rn(acc[dt][2] * mul, acc[dt][3] * mul);
-    }
-  }
-}
-
-// Overwrite a smem tile with itself times qscale, rounded to bf16: the
-// pre-scaled q of the forward (attention.py:69 in the reference).
-__device__ __forceinline__ void scale_tile(__nv_bfloat16* dst, const __nv_bfloat16* src,
-                                           float qscale, int tid) {
-  for (int c = tid; c < kBlock * kD / 8; c += kThreads) {
-    const int r = c / (kD / 8);
-    const int col = (c % (kD / 8)) * 8;
-    const uint4 raw = *reinterpret_cast<const uint4*>(&src[r * kLd + col]);
-    const __nv_bfloat16* e = reinterpret_cast<const __nv_bfloat16*>(&raw);
-    uint4 packed;
-    uint32_t* pw = reinterpret_cast<uint32_t*>(&packed);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      pw[i] = pack_f32(__bfloat162float(e[2 * i]) * qscale, __bfloat162float(e[2 * i + 1]) * qscale);
-    }
-    *reinterpret_cast<uint4*>(&dst[r * kLd + col]) = packed;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) flash_bwd_delta_kernel(const Args a) {
-  const int tid = threadIdx.x;
-  const long long row = static_cast<long long>(blockIdx.x) * kDeltaRows + tid / 8;
-  const int part = tid % 8;
-  const long long rows = static_cast<long long>(a.B) * a.H * a.S;
-  float sum = 0.f;
-  if (row < rows) {
-    const int s = static_cast<int>(row % a.S);
-    const long long bh = row / a.S;
-    const int h = static_cast<int>(bh % a.H);
-    const int b = static_cast<int>(bh / a.H);
-    const uint4 ov = *reinterpret_cast<const uint4*>(a.o + b * a.o_sb + h * a.o_sh + s * a.o_ss +
-                                                     part * 8);
-    const uint4 gv = *reinterpret_cast<const uint4*>(a.dout + b * a.do_sb + h * a.do_sh +
-                                                     s * a.do_ss + part * 8);
-    const __nv_bfloat16* oe = reinterpret_cast<const __nv_bfloat16*>(&ov);
-    const __nv_bfloat16* ge = reinterpret_cast<const __nv_bfloat16*>(&gv);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) sum += __bfloat162float(oe[i]) * __bfloat162float(ge[i]);
-  }
-  sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-  sum += __shfl_xor_sync(0xffffffffu, sum, 4);
-  if (row < rows && part == 0) a.delta[row] = sum;
-}
-
-__global__ void __launch_bounds__(kThreads) flash_bwd_dkdv_kernel(const Args a) {
-  __shared__ __align__(16) __nv_bfloat16 sQ[2][kTile];
-  __shared__ __align__(16) __nv_bfloat16 sdO[2][kTile];
-  __shared__ __align__(16) __nv_bfloat16 sQs[kTile];
-  __shared__ __align__(16) float sLse[2][kBlock];
-  __shared__ __align__(16) float sDelta[2][kBlock];
-
-  const int kt = blockIdx.x;  // heaviest k tiles (the first) first
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int k0 = kt * kBlock;
-  const int n_q = (a.S + kBlock - 1) / kBlock;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-
-  const __nv_bfloat16* qg = a.q + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* dog = a.dout + b * a.do_sb + h * a.do_sh;
-  const long long bh_row = (static_cast<long long>(b) * a.H + h) * a.S;
-  const float* lseg = a.lse + bh_row;
-  const float* deltag = a.delta + bh_row;
-
-  auto load_q = [&](int stage, int tile) {
-    const int q0 = tile * kBlock;
-    load_tile(sQ[stage], qg, a.q_ss, q0, a.S, tid);
-    load_tile(sdO[stage], dog, a.do_ss, q0, a.S, tid);
-    if (tid < kBlock) {
-      const bool valid = q0 + tid < a.S;
-      cp_async4(&sLse[stage][tid], lseg + (valid ? q0 + tid : 0), valid);
-    } else {
-      const int r = tid - kBlock;
-      const bool valid = q0 + r < a.S;
-      cp_async4(&sDelta[stage][r], deltag + (valid ? q0 + r : 0), valid);
-    }
-  };
-
-  // K and V go through stage 1 into registers; the first q tile (the
-  // diagonal one) lands in stage 0 meanwhile.
-  load_tile(sQ[1], a.k + b * a.k_sb + h * a.k_sh, a.k_ss, k0, a.S, tid);
-  load_tile(sdO[1], a.v + b * a.v_sb + h * a.v_sh, a.v_ss, k0, a.S, tid);
-  load_q(0, kt);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-
-  const int r0 = warp * 16 + g;  // this thread's k rows in the tile: r0, r0 + 8
-  uint32_t kf[kD / 16][4], vf[kD / 16][4];
-  load_a_frags(kf, sQ[1], r0, t);
-  load_a_frags(vf, sdO[1], r0, t);
-  __syncthreads();  // stage 1 is free for the prefetch
-
-  float dk[kD / 8][4], dv[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk[dt][e] = dv[dt][e] = 0.f;
-  }
-  const int key_a = k0 + r0;
-  const int key_b = key_a + 8;
-
-  for (int i = kt; i < n_q; ++i) {
-    const int st = (i - kt) & 1;
-    if (i + 1 < n_q) {
-      load_q(st ^ 1, i + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    scale_tile(sQs, sQ[st], a.qscale, tid);
-    __syncthreads();
-
-    // s^T = k . qs^T (16 keys x 64 q rows per warp), then p^T in place.
-    float p[kBlock / 8][4];
-    rows_product(p, kf, sQs, g, t);
-    const int q0 = i * kBlock;
-    const bool masked = i == kt || q0 + kBlock > a.S;
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      const float l0 = sLse[st][c], l1 = sLse[st][c + 1];
-      p[nt][0] = exp2f(p[nt][0] - l0);
-      p[nt][1] = exp2f(p[nt][1] - l1);
-      p[nt][2] = exp2f(p[nt][2] - l0);
-      p[nt][3] = exp2f(p[nt][3] - l1);
-      if (masked) {
-        const int qa = q0 + c;
-        const int qb = qa + 1;
-        if (qa < key_a || qa >= a.S) p[nt][0] = 0.f;
-        if (qb < key_a || qb >= a.S) p[nt][1] = 0.f;
-        if (qa < key_b || qa >= a.S) p[nt][2] = 0.f;
-        if (qb < key_b || qb >= a.S) p[nt][3] = 0.f;
-      }
-    }
-
-    // dV += bf16(p)^T . dO
-    accumulate_product(dv, p, sdO[st], lane);
-
-    // dP^T = v . dO^T, then dS^T = p * (dP - delta) in place.
-    float ds[kBlock / 8][4];
-    rows_product(ds, vf, sdO[st], g, t);
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      const int c = nt * 8 + 2 * t;
-      const float d0 = sDelta[st][c], d1 = sDelta[st][c + 1];
-      ds[nt][0] = p[nt][0] * (ds[nt][0] - d0);
-      ds[nt][1] = p[nt][1] * (ds[nt][1] - d1);
-      ds[nt][2] = p[nt][2] * (ds[nt][2] - d0);
-      ds[nt][3] = p[nt][3] * (ds[nt][3] - d1);
-    }
-
-    // dK += bf16(dS)^T . q
-    accumulate_product(dk, ds, sQ[st], lane);
-    __syncthreads();  // the next iteration's prefetch overwrites this stage
-  }
-
-  store_rows(a.dk + b * a.dk_sb + h * a.dk_sh, a.dk_ss, dk, a.scale, key_a, a.S, t);
-  store_rows(a.dv + b * a.dv_sb + h * a.dv_sh, a.dv_ss, dv, 1.f, key_a, a.S, t);
-}
-
-__global__ void __launch_bounds__(kThreads) flash_bwd_dq_kernel(const Args a) {
-  __shared__ __align__(16) __nv_bfloat16 sK[2][kTile];
-  __shared__ __align__(16) __nv_bfloat16 sV[2][kTile];
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+    flash_bwd_dq_kernel(const __grid_constant__ BwdParams p) {
+  using namespace dq_pass;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const sbase = smem_raw + (base - raw);
+  const uint32_t bar_rows = base + kOffBar;
+  auto bar_f = [&](int s) { return bar_rows + 8 * (1 + s); };
+  auto bar_e = [&](int s) { return bar_rows + 8 * (1 + kStages + s); };
 
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest q tiles (the last) first
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int q0 = qt * kBlock;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+  const int q0 = qt * kTile;
+  const int n_tiles = qt + 1;  // k tiles up to the diagonal one
 
-  const __nv_bfloat16* kg = a.k + b * a.k_sb + h * a.k_sh;
-  const __nv_bfloat16* vg = a.v + b * a.v_sb + h * a.v_sh;
-
-  auto load_kv = [&](int stage, int tile) {
-    load_tile(sK[stage], kg, a.k_ss, tile * kBlock, a.S, tid);
-    load_tile(sV[stage], vg, a.v_ss, tile * kBlock, a.S, tid);
-  };
-
-  // Q and dO go through stage 1 into registers; k tile 0 lands in stage 0.
-  load_tile(sK[1], a.q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.S, tid);
-  load_tile(sV[1], a.dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a.S, tid);
-  load_kv(0, 0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  scale_tile(sK[1], sK[1], a.qscale, tid);  // each thread rescales its own chunks
+  if (threadIdx.x == 0) {
+    mbar_init(bar_rows, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f(s), 1);
+      mbar_init(bar_e(s), 4);  // every consumer warp
+    }
+    fence_barrier_init();
+  }
   __syncthreads();
 
-  const int r0 = warp * 16 + g;  // this thread's q rows in the tile: r0, r0 + 8
-  uint32_t qf[kD / 16][4], dof[kD / 16][4];
-  load_a_frags(qf, sK[1], r0, t);
-  load_a_frags(dof, sV[1], r0, t);
-  const int row_a = q0 + r0;
-  const int row_b = row_a + 8;
-  const long long bh_row = (static_cast<long long>(b) * a.H + h) * a.S;
-  const float lse_a = row_a < a.S ? a.lse[bh_row + row_a] : 0.f;
-  const float lse_b = row_b < a.S ? a.lse[bh_row + row_b] : 0.f;
-  const float delta_a = row_a < a.S ? a.delta[bh_row + row_a] : 0.f;
-  const float delta_b = row_b < a.S ? a.delta[bh_row + row_b] : 0.f;
-  __syncthreads();  // stage 1 is free for the prefetch
-
-  float dq[kD / 8][4];
-#pragma unroll
-  for (int dt = 0; dt < kD / 8; ++dt) dq[dt][0] = dq[dt][1] = dq[dt][2] = dq[dt][3] = 0.f;
-
-  const int n_tiles = qt + 1;  // tiles [0, qt) are interior, tile qt is the diagonal
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_kv(st ^ 1, j + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    // s = qs . k^T (16 q rows x 64 keys per warp), then p in place.
-    float p[kBlock / 8][4];
-    rows_product(p, qf, sK[st], g, t);
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      p[nt][0] = exp2f(p[nt][0] - lse_a);
-      p[nt][1] = exp2f(p[nt][1] - lse_a);
-      p[nt][2] = exp2f(p[nt][2] - lse_b);
-      p[nt][3] = exp2f(p[nt][3] - lse_b);
-    }
-    if (j == qt) {
-#pragma unroll
-      for (int nt = 0; nt < kBlock / 8; ++nt) {
-        const int col = j * kBlock + nt * 8 + 2 * t;
-        if (col > row_a) p[nt][0] = 0.f;
-        if (col + 1 > row_a) p[nt][1] = 0.f;
-        if (col > row_b) p[nt][2] = 0.f;
-        if (col + 1 > row_b) p[nt][3] = 0.f;
+  if (threadIdx.x >= 128) {
+    // The producer warp: one thread issues every TMA load.
+    if (threadIdx.x == 128) {
+      mbar_arrive_expect_tx(bar_rows, 3 * kTileBytes);
+      tma_load_rows(base + kOffQ, &p.tq, bar_rows, q0, h, b);
+      tma_load_rows(base + kOffDo, &p.tdo, bar_rows, q0, h, b);
+      tma_load_rows(base + kOffO, &p.to, bar_rows, q0, h, b);
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(bar_e(s), (j / kStages - 1) & 1);
+        mbar_arrive_expect_tx(bar_f(s), 2 * kTileBytes);
+        tma_load_rows(base + kOffK + s * kTileBytes, &p.tk, bar_f(s), j * kTile, h, b);
+        tma_load_rows(base + kOffV + s * kTileBytes, &p.tv, bar_f(s), j * kTile, h, b);
       }
     }
-
-    // dP = dO . v^T, then dS = p * (dP - delta) in place.
-    float ds[kBlock / 8][4];
-    rows_product(ds, dof, sV[st], g, t);
-#pragma unroll
-    for (int nt = 0; nt < kBlock / 8; ++nt) {
-      ds[nt][0] = p[nt][0] * (ds[nt][0] - delta_a);
-      ds[nt][1] = p[nt][1] * (ds[nt][1] - delta_a);
-      ds[nt][2] = p[nt][2] * (ds[nt][2] - delta_b);
-      ds[nt][3] = p[nt][3] * (ds[nt][3] - delta_b);
-    }
-
-    // dQ += bf16(dS) . k
-    accumulate_product(dq, ds, sK[st], lane);
-    __syncthreads();  // the next iteration's prefetch overwrites this stage
+    return;
   }
 
-  store_rows(a.dq + b * a.dq_sb + h * a.dq_sh, a.dq_ss, dq, a.scale, row_a, a.S, t);
+  const int tw = threadIdx.x;
+  const int lane = tw % 32;
+  const int t = lane % 4;
+  const int r0 = 16 * (tw / 32) + lane / 4;  // this thread's q rows r0 and r0 + 8 of the tile
+  const int row_a = q0 + r0;
+  const int row_b = row_a + 8;
+  const uint32_t sq = base + kOffQ;
+  const uint32_t sdo = base + kOffDo;
+  const long long bh_row = (static_cast<long long>(b) * p.H + h) * p.S;
+  const float lse_a = row_a < p.S ? p.lse[bh_row + row_a] : 0.f;
+  const float lse_b = row_b < p.S ? p.lse[bh_row + row_b] : 0.f;
+
+  mbar_wait(bar_rows, 0);
+  // delta = rowsum(dO * O) in f32: the 4 threads of a row group take 16
+  // columns each, in a fixed order, so reruns are bit-equal.
+  float delta[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
+    float sum = 0.f;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const uint32_t off = swz(r, 16 * t + 8 * half);
+      const uint4 dv = *reinterpret_cast<const uint4*>(sbase + kOffDo + off);
+      const uint4 ov = *reinterpret_cast<const uint4*>(sbase + kOffO + off);
+      const uint32_t dw[4] = {dv.x, dv.y, dv.z, dv.w};
+      const uint32_t ow[4] = {ov.x, ov.y, ov.z, ov.w};
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        sum += __uint_as_float(dw[w] << 16) * __uint_as_float(ow[w] << 16);
+        sum += __uint_as_float(dw[w] & 0xffff0000u) * __uint_as_float(ow[w] & 0xffff0000u);
+      }
+    }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    delta[i] = sum;
+  }
+  if (t == 0) {
+    if (row_a < p.S) p.delta[bh_row + row_a] = delta[0];
+    if (row_b < p.S) p.delta[bh_row + row_b] = delta[1];
+  }
+  // Qs = bf16(q qscale) in place over the Q tile.
+  scale_tile(sbase + kOffQ, sbase + kOffQ, p.qscale, tw);
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+
+  float dq_acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const uint32_t par = (j / kStages) & 1;
+    const uint32_t sk = base + kOffK + s * kTileBytes;
+    const uint32_t sv = base + kOffV + s * kTileBytes;
+    mbar_wait(bar_f(s), par);
+    __syncwarp();
+
+    // S = Qs K^T and dP = dO V^T: [64 q rows x 64 keys] each.
+    float sp[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss_n64(sp, desc_sw128(sq + 32 * kk), desc_sw128(sk + 32 * kk), kk > 0);
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss_n64(dp, desc_sw128(sdo + 32 * kk), desc_sw128(sv + 32 * kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sp);
+
+    // P = exp2(S - lse), zero past the diagonal (which covers keys past S).
+    const int k0 = j * kTile;
+    const bool masked = j == qt;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      sp[4 * n] = fast_exp2(sp[4 * n] - lse_a);
+      sp[4 * n + 1] = fast_exp2(sp[4 * n + 1] - lse_a);
+      sp[4 * n + 2] = fast_exp2(sp[4 * n + 2] - lse_b);
+      sp[4 * n + 3] = fast_exp2(sp[4 * n + 3] - lse_b);
+      if (masked) {
+        const int col = k0 + 8 * n + 2 * t;
+        if (col > row_a) sp[4 * n] = 0.f;
+        if (col + 1 > row_a) sp[4 * n + 1] = 0.f;
+        if (col > row_b) sp[4 * n + 2] = 0.f;
+        if (col + 1 > row_b) sp[4 * n + 3] = 0.f;
+      }
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+
+    // dS = P * (dP - delta), then dQ += bf16(dS) K, K read MN-major.
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      dp[4 * n] = sp[4 * n] * (dp[4 * n] - delta[0]);
+      dp[4 * n + 1] = sp[4 * n + 1] * (dp[4 * n + 1] - delta[0]);
+      dp[4 * n + 2] = sp[4 * n + 2] * (dp[4 * n + 2] - delta[1]);
+      dp[4 * n + 3] = sp[4 * n + 3] * (dp[4 * n + 3] - delta[1]);
+    }
+    uint32_t dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a_frag(dsf[kk], dp, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      wgmma_rs_n64<1>(dq_acc, dsf[kk], desc_sw128(sk + 2048 * kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    if (lane == 0) mbar_arrive(bar_e(s));  // this warp is done with the stage
+  }
+
+  // dQ (times scale) through the Q tile, then one TMA store.
+  named_bar_sync(1, 128);
+  store_acc_tile(sbase + kOffQ, dq_acc, p.scale, p.scale, r0, t);
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+  if (tw == 0) {
+    tma_store_rows(&p.tdq, sq, q0, h, b);
+    tma_store_wait();
+  }
+}
+
+// ---- (b) dK/dV: one CTA per (b, h, 64 k rows) ----
+
+namespace dkdv_pass {
+constexpr int kOffK = 0;
+constexpr int kOffV = kOffK + kTileBytes;
+constexpr int kOffQ = kOffV + kTileBytes;                 // [kStages] q tiles
+constexpr int kOffDo = kOffQ + kStages * kTileBytes;      // [kStages] dO tiles
+constexpr int kOffQs = kOffDo + kStages * kTileBytes;     // [2] scaled q tiles
+constexpr int kOffLse = kOffQs + 2 * kTileBytes;          // [kStages][64] f32
+constexpr int kOffDelta = kOffLse + kStages * kTile * 4;  // [kStages][64] f32
+constexpr int kOffBar = kOffDelta + kStages * kTile * 4;
+constexpr int kSmem = kOffBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
+}  // namespace dkdv_pass
+
+__global__ void __launch_bounds__(kThreads, kCtasPerSm)
+    flash_bwd_dkdv_kernel(const __grid_constant__ BwdParams p) {
+  using namespace dkdv_pass;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  uint8_t* const sbase = smem_raw + (base - raw);
+  const uint32_t bar_kv = base + kOffBar;
+  auto bar_f = [&](int s) { return bar_kv + 8 * (1 + s); };
+  auto bar_e = [&](int s) { return bar_kv + 8 * (1 + kStages + s); };
+  float* const s_lse = reinterpret_cast<float*>(sbase + kOffLse);
+  float* const s_delta = reinterpret_cast<float*>(sbase + kOffDelta);
+
+  const int kt = blockIdx.x;  // heaviest k tiles (the first) first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int k0 = kt * kTile;
+  const int n_q = (p.S + kTile - 1) / kTile;  // q tiles kt .. n_q - 1 reach these keys
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_f(s), 32);  // the producer warp's lanes, after their lse/delta copies
+      mbar_init(bar_e(s), 4);   // every consumer warp
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    // The producer warp: lane 0 issues the TMA loads, every lane copies lse/delta.
+    const int lane = threadIdx.x % 32;
+    const long long bh_row = (static_cast<long long>(b) * p.H + h) * p.S;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(bar_kv, 2 * kTileBytes);
+      tma_load_rows(base + kOffK, &p.tk, bar_kv, k0, h, b);
+      tma_load_rows(base + kOffV, &p.tv, bar_kv, k0, h, b);
+    }
+    for (int it = 0; kt + it < n_q; ++it) {
+      const int s = it % kStages;
+      const int q0 = (kt + it) * kTile;
+      if (it >= kStages) mbar_wait(bar_e(s), (it / kStages - 1) & 1);
+      if (lane == 0) {
+        mbar_expect_tx(bar_f(s), 2 * kTileBytes);
+        tma_load_rows(base + kOffQ + s * kTileBytes, &p.tq, bar_f(s), q0, h, b);
+        tma_load_rows(base + kOffDo + s * kTileBytes, &p.tdo, bar_f(s), q0, h, b);
+      }
+      for (int r = lane; r < kTile; r += 32) {
+        const bool valid = q0 + r < p.S;
+        s_lse[s * kTile + r] = valid ? p.lse[bh_row + q0 + r] : 0.f;
+        s_delta[s * kTile + r] = valid ? p.delta[bh_row + q0 + r] : 0.f;
+      }
+      mbar_arrive(bar_f(s));
+    }
+    return;
+  }
+
+  const int tw = threadIdx.x;
+  const int lane = tw % 32;
+  const int t = lane % 4;
+  const int r0 = 16 * (tw / 32) + lane / 4;  // this thread's key rows r0 and r0 + 8 of the tile
+  const int key_a = k0 + r0;
+  const int key_b = key_a + 8;
+  const uint32_t sk = base + kOffK;
+  const uint32_t sv = base + kOffV;
+
+  float dk[32], dv[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk[i] = dv[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  for (int it = 0; kt + it < n_q; ++it) {
+    const int s = it % kStages;
+    const uint32_t par = (it / kStages) & 1;
+    const int q0 = (kt + it) * kTile;
+    const uint32_t sq = base + kOffQ + s * kTileBytes;
+    const uint32_t sdo = base + kOffDo + s * kTileBytes;
+    // Double-buffered: a warp may still read the previous tile's Qs.
+    const uint32_t sqs = base + kOffQs + (it & 1) * kTileBytes;
+    const float* lse = s_lse + s * kTile;
+    const float* delta = s_delta + s * kTile;
+    mbar_wait(bar_f(s), par);
+
+    scale_tile(sbase + (sqs - base), sbase + (sq - base), p.qscale, tw);  // Qs = bf16(q qscale)
+    fence_proxy_async();
+    named_bar_sync(1, 128);
+
+    // S^T = K Qs^T and dP^T = V dO^T: [64 keys x 64 q rows] each.
+    float pt[32], dst[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss_n64(pt, desc_sw128(sk + 32 * kk), desc_sw128(sqs + 32 * kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kD / 16; ++kk) {
+      wgmma_ss_n64(dst, desc_sw128(sv + 32 * kk), desc_sw128(sdo + 32 * kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(pt);
+    fence_regs(dst);
+
+    // P^T = exp2(S^T - lse[q]), zero where q < key or q >= S; then
+    // dS^T = P^T * (dP^T - delta[q]) in place of dP^T.
+    const bool masked = it == 0 || q0 + kTile > p.S;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int c = 8 * n + 2 * t;
+      const float2 l2 = *reinterpret_cast<const float2*>(lse + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(delta + c);
+      pt[4 * n] = fast_exp2(pt[4 * n] - l2.x);
+      pt[4 * n + 1] = fast_exp2(pt[4 * n + 1] - l2.y);
+      pt[4 * n + 2] = fast_exp2(pt[4 * n + 2] - l2.x);
+      pt[4 * n + 3] = fast_exp2(pt[4 * n + 3] - l2.y);
+      if (masked) {
+        const int qa = q0 + c;
+        const int qb = qa + 1;
+        if (qa < key_a || qa >= p.S) pt[4 * n] = 0.f;
+        if (qb < key_a || qb >= p.S) pt[4 * n + 1] = 0.f;
+        if (qa < key_b || qa >= p.S) pt[4 * n + 2] = 0.f;
+        if (qb < key_b || qb >= p.S) pt[4 * n + 3] = 0.f;
+      }
+      dst[4 * n] = pt[4 * n] * (dst[4 * n] - d2.x);
+      dst[4 * n + 1] = pt[4 * n + 1] * (dst[4 * n + 1] - d2.y);
+      dst[4 * n + 2] = pt[4 * n + 2] * (dst[4 * n + 2] - d2.x);
+      dst[4 * n + 3] = pt[4 * n + 3] * (dst[4 * n + 3] - d2.y);
+    }
+
+    // dV += bf16(P^T) dO and dK += bf16(dS^T) q, dO and q read MN-major.
+    uint32_t pf[4][4], dsf[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a_frag(pf[kk], pt, kk);
+      acc_to_a_frag(dsf[kk], dst, kk);
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dv, pf[kk], desc_sw128(sdo + 2048 * kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_n64<1>(dk, dsf[kk], desc_sw128(sq + 2048 * kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dv);
+    fence_regs(dk);
+    if (lane == 0) mbar_arrive(bar_e(s));  // this warp is done with the stage
+  }
+
+  // dK (times scale) and dV through the K and V tiles, then TMA stores.
+  named_bar_sync(1, 128);
+  store_acc_tile(sbase + kOffK, dk, p.scale, p.scale, r0, t);
+  store_acc_tile(sbase + kOffV, dv, 1.f, 1.f, r0, t);
+  fence_proxy_async();
+  named_bar_sync(1, 128);
+  if (tw == 0) {
+    tma_store_rows(&p.tdk, sk, k0, h, b);
+    tma_store_rows(&p.tdv, sv, k0, h, b);
+    tma_store_wait();
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launch the three passes on `stream`, in order; returns the first nonzero
-// cudaGetLastError() (0 on success). lse is the forward's contiguous f32
-// [B, H, S]; delta is contiguous f32 [B, H, S] scratch that this call
-// fills. Strides are in elements.
+// Launch the two passes on `stream`, in order; returns the first nonzero
+// cudaGetLastError() (0 on success), or kTensorMapError + i if the driver
+// refuses the i-th tensor map (q, k, v, o, dO, dq, dk, dv). lse is the
+// forward's contiguous f32 [B, H, S]; delta is contiguous f32 [B, H, S]
+// scratch that this call fills. Strides are in elements.
 int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* o, const void* dout,
                    const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int H,
                    int S, int D, long long q_sb, long long q_sh, long long q_ss, long long k_sb,
@@ -509,49 +465,53 @@ int flash_bwd_bf16(const void* q, const void* k, const void* v, const void* o, c
   if (D != kD || B < 1 || H < 1 || S < 1 || B > 65535 || H > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Args a;
-  a.q = static_cast<const __nv_bfloat16*>(q);
-  a.k = static_cast<const __nv_bfloat16*>(k);
-  a.v = static_cast<const __nv_bfloat16*>(v);
-  a.o = static_cast<const __nv_bfloat16*>(o);
-  a.dout = static_cast<const __nv_bfloat16*>(dout);
-  a.lse = static_cast<const float*>(lse);
-  a.delta = static_cast<float*>(delta);
-  a.dq = static_cast<__nv_bfloat16*>(dq);
-  a.dk = static_cast<__nv_bfloat16*>(dk);
-  a.dv = static_cast<__nv_bfloat16*>(dv);
-  a.B = B;
-  a.H = H;
-  a.S = S;
-  a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
-  a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
-  a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
-  a.o_sb = o_sb; a.o_sh = o_sh; a.o_ss = o_ss;
-  a.do_sb = do_sb; a.do_sh = do_sh; a.do_ss = do_ss;
-  a.dq_sb = dq_sb; a.dq_sh = dq_sh; a.dq_ss = dq_ss;
-  a.dk_sb = dk_sb; a.dk_sh = dk_sh; a.dk_ss = dk_ss;
-  a.dv_sb = dv_sb; a.dv_sh = dv_sh; a.dv_ss = dv_ss;
-  a.scale = scale;
-  a.qscale = qscale;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  const long long rows = static_cast<long long>(B) * H * S;
-  const unsigned delta_blocks = static_cast<unsigned>((rows + kDeltaRows - 1) / kDeltaRows);
-  flash_bwd_delta_kernel<<<delta_blocks, kThreads, 0, s>>>(a);
-  cudaError_t err = cudaGetLastError();
+  // Set the kernels' shared-memory limits first: that runtime call also makes
+  // the device's context current on this thread, which the driver's
+  // tensor-map encoder needs (an autograd worker thread may not have it yet).
+  const cudaFuncAttribute smem_limit = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel, smem_limit, dq_pass::kSmem);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel, smem_limit, dkdv_pass::kSmem);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
+  BwdParams p;
+  const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
+  CUtensorMap* maps[8] = {&p.tq, &p.tk, &p.tv, &p.to, &p.tdo, &p.tdq, &p.tdk, &p.tdv};
+  const long long strides[8][3] = {{q_sb, q_sh, q_ss},    {k_sb, k_sh, k_ss},
+                                   {v_sb, v_sh, v_ss},    {o_sb, o_sh, o_ss},
+                                   {do_sb, do_sh, do_ss}, {dq_sb, dq_sh, dq_ss},
+                                   {dk_sb, dk_sh, dk_ss}, {dv_sb, dv_sh, dv_ss}};
+  for (int i = 0; i < 8; ++i) {
+    const CUresult r =
+        make_rows_map(maps[i], ptrs[i], B, H, S, strides[i][0], strides[i][1], strides[i][2]);
+    if (r != CUDA_SUCCESS) return tensor_map_error(i, r);
+  }
+  p.lse = static_cast<const float*>(lse);
+  p.delta = static_cast<float*>(delta);
+  p.H = H;
+  p.S = S;
+  p.qscale = qscale;
+  p.scale = scale;
 
-  const dim3 grid((S + kBlock - 1) / kBlock, H, B);
-  flash_bwd_dkdv_kernel<<<grid, kThreads, 0, s>>>(a);
+  const dim3 grid((S + kTile - 1) / kTile, H, B);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  flash_bwd_dq_kernel<<<grid, kThreads, dq_pass::kSmem, s>>>(p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-
-  flash_bwd_dq_kernel<<<grid, kThreads, 0, s>>>(a);
+  flash_bwd_dkdv_kernel<<<grid, kThreads, dkdv_pass::kSmem, s>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiles every launch uses: out[0], out[1] are the dK/dV pass's k rows
+// per CTA and q rows per tile; out[2], out[3] the dQ pass's q rows per CTA
+// and k rows per tile.
+void flash_bwd_tile_rows(int* out) {
+  out[0] = out[1] = out[2] = out[3] = kTile;
+}
+
 const char* flash_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+  static const char* const kOperands[] = {"q", "k", "v", "o", "dO", "dq", "dk", "dv"};
+  return error_string(code, kOperands);
 }
 
 }  // extern "C"

@@ -47,16 +47,22 @@ def _qkv_views(S, dev, B=1, H=12, D=64, seed=0):
     return [t.reshape(B, S, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1)]
 
 
-@pytest.mark.parametrize("S", [1, 17, 64, 100, 129, 1024])
-def test_kernel_matches_plain_version(card, S):
-    q, k, v = _qkv_views(S, card, seed=S)
+# (B, S) of the kernel checks: every edge of the 64- and 128-row tiles at
+# B=1 (serving), and the shapes of a small and of the real training batch.
+SHAPES = [(1, S) for S in (1, 17, 63, 64, 65, 100, 127, 128, 129, 255, 1024, 2048)]
+SHAPES += [(2, 256), (8, 1024)]
+
+
+@pytest.mark.parametrize("B,S", SHAPES)
+def test_kernel_matches_plain_version(card, B, S):
+    q, k, v = _qkv_views(S, card, B=B, seed=S)
     scale = 0.125
     before = attention.flash_fwd_launches
     o, lse = attention.flash_attention_fwd(q, k, v, scale)
     torch.cuda.synchronize()
     assert attention.flash_fwd_launches == before + 1
     o_ref, lse_ref = attention.flash_attention_fwd_reference(q, k, v, scale)
-    assert o.shape == (1, 12, S, 64) and lse.shape == (1, 12, S, 1)
+    assert o.shape == (B, 12, S, 64) and lse.shape == (B, 12, S, 1)
     assert (o.float() - o_ref.float()).abs().max().item() <= O_TOL
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
     # causal_attention dispatches a CUDA tensor to the kernel.
@@ -101,7 +107,7 @@ def _rel_err(got, want):
     return (got.float() - want.float()).abs().max().item() / scale
 
 
-@pytest.mark.parametrize("B,S", [(1, 1), (1, 17), (1, 64), (1, 100), (1, 129), (1, 1024), (2, 256)])
+@pytest.mark.parametrize("B,S", SHAPES)
 def test_backward_kernel_matches_plain_version(card, B, S):
     q, k, v, do = _grad_inputs(S, card, B=B, seed=S)
     scale = 0.125
