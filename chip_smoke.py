@@ -10,16 +10,29 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    ``nvcc`` per source, all started together.
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path (B=1) and the training path (B=8, S=1024) give
-   it, and time kernel, plain version and the PyTorch library call that
-   computes the same function.
-3. Serve GPT-2-125M at full width (random weights from a seed) through the
-   port's ``LLMEngine`` with the dense KV cache: 6 requests of ~20 to ~1000
-   prompt tokens, two of them sharing a 64-token prefix. The kernels' launch
-   counts are zeroed just before this run and read just after it.
-4. Check the first-token logits of one prompt against a run through the
-   plain attention, on the card.
-5. Profile where a step's time goes (torch.profiler: device busy share and
-   the heaviest kernels of one prefill step and of decode steps).
+   it, and the forward also at Llama's layout (contiguous q, K/V expanded
+   from 4 KV heads, B=1, S=1024); time kernel, plain version and the
+   PyTorch library call that computes the same function.
+3. Serve through the port's ``LLMEngine`` at the reference engine's
+   default shape (16 slots, 2048 positions), four paths in turn, each at
+   full width with random weights from a seed: GPT-2-125M on the dense KV
+   cache (``serve``), GPT-2-125M on the paged cache, the default
+   (``serve_paged``), Llama-125M on the dense cache (``serve_llama``) and
+   on the paged cache (``serve_llama_paged``). Each gets 6 requests of ~20
+   to ~1000 prompt tokens, two of them sharing a 64-token prefix; the
+   kernels' launch counts are zeroed just before each path and read just
+   after it. Dense paths launch flash_fwd 12 times per fresh prefill; the
+   paged paths run no kernel (0 launches), as the reference's paged
+   prefill and decode run no Pallas kernel. On the paged paths the shared
+   prefix runs on shared blocks (refcount >= 2), and after the run only
+   the prefix pool's blocks stay in use.
+4. Check each path's first-token logits of one prompt: a dense path's
+   (the kernel) against the plain attention within bf16's own noise, a
+   paged path's against its family's dense plain-attention logits for
+   exact equality.
+5. Profile where a step's time goes on each path (torch.profiler: device
+   busy share and the heaviest kernels of one prefill step and of decode
+   steps).
 6. Train GPT-2-125M at full width through the port's ``make_train_step``
    (batch [8, 1024], bf16 activations, f32 masters, ``remat="mlp"``,
    ``loss_chunk=0``): one step's loss and gradient norm through the kernels
@@ -53,7 +66,8 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import LLMEngine
-from ray_tpu_torch.models import gpt2, gpt2_decode
+from ray_tpu_torch.models import gpt2, paged
+from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops import _build, attention
 from ray_tpu_torch.train import spmd
 
@@ -134,6 +148,21 @@ def qkv_views(S, dev, B=1, H=12, D=64, seed=0):
     return [t.reshape(B, S, H, D).transpose(1, 2) for t in qkv.split(H * D, dim=-1)]
 
 
+def gqa_layout(S, dev, B=1, H=12, KH=4, D=64, seed=0):
+    """q, k, v as Llama's dense prefill hands them to the forward kernel: q
+    contiguous [B, H, S, D] (it comes out of RoPE's concatenation), K/V
+    contiguous [B, H, S, D] from ``repeat_interleave`` of KH heads."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, H, S, D), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (
+        torch.randn((B, KH, S, D), generator=g, device=dev)
+        .to(torch.bfloat16)
+        .repeat_interleave(H // KH, dim=1)
+        for _ in range(2)
+    )
+    return q, k, v
+
+
 def grad_out(S, dev, B=1, H=12, D=64, seed=0):
     """dO as training hands it to the backward: the gradient of O, whose
     storage is [B, S, H, D], seen as [B, H, S, D]."""
@@ -212,9 +241,15 @@ def attention_shapes():
 
 
 def check_flash_kernel(dev) -> list[dict]:
+    """The forward kernel against its plain version at every serving and
+    training shape on GPT-2's strided head views, and at B=1, S=1024 on
+    Llama's layout (contiguous q, K/V expanded from 4 KV heads)."""
     rows = []
-    for B, S in attention_shapes():
-        q, k, v = qkv_views(S, dev, B=B, seed=S)
+    cases = [("qkv_views", B, S) for B, S in attention_shapes()]
+    cases.append(("gqa_expanded", 1, HEADLINE_S))
+    for layout, B, S in cases:
+        make = qkv_views if layout == "qkv_views" else gqa_layout
+        q, k, v = make(S, dev, B=B, seed=S)
         scale = 1.0 / 8.0
         o, lse = attention.flash_attention_fwd(q, k, v, scale)
         torch.cuda.synchronize()
@@ -229,12 +264,12 @@ def check_flash_kernel(dev) -> list[dict]:
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale), iters
         )
         bound_ms, bound_by = flash_bound_ms(B, 12, S, 64)
-        row = dict(B=B, S=S, max_abs_err=err_o, max_abs_err_lse=err_lse, ms=ms,
+        row = dict(layout=layout, B=B, S=S, max_abs_err=err_o, max_abs_err_lse=err_lse, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms)
         log("flash_fwd", json.dumps(row))
         if not finite or err_o > O_TOL or err_lse > LSE_TOL:
-            raise AssertionError(f"flash_fwd disagrees with its plain version at B={B} S={S}: {row}")
+            raise AssertionError(f"flash_fwd disagrees with its plain version: {row}")
         rows.append(row)
     return rows
 
@@ -281,16 +316,62 @@ def check_flash_bwd_kernel(dev) -> list[dict]:
     return rows
 
 
-def serve_engine(rng) -> dict:
-    """The main path: GPT-2-125M, dense KV, 6 requests through LLMEngine."""
-    torch.cuda.reset_peak_memory_stats()
-    engine = LLMEngine(LLMConfig(kv_block_size=0, seed=0))
-    cfg = engine.model_config
-    assert (cfg.n_layer, cfg.n_head, cfg.d_model, cfg.d_ff, cfg.vocab_size) == (
-        12, 12, 768, 3072, 50304
-    ), cfg
-    assert engine.cache["k"].shape == (12, 16, 12, 2048, 64), engine.cache["k"].shape
-    ids = lambda n: rng.integers(0, 50257, n).tolist()  # noqa: E731
+# The serving paths, in order: (name, LLMConfig fields, flash_fwd launches
+# per fresh prefill per layer). Each paged path follows the dense one of its
+# family, whose plain-attention logits it is held against. The paged
+# prefill and decode run no kernel, as the reference's run no Pallas kernel.
+LLAMA_125M = LlamaConfig.llama_125m()
+SERVE_PATHS = (
+    ("serve", dict(kv_block_size=0), 1),
+    ("serve_paged", dict(), 0),
+    ("serve_llama", dict(model_config=LLAMA_125M, kv_block_size=0), 1),
+    ("serve_llama_paged", dict(model_config=LLAMA_125M), 0),
+)
+
+
+def build_engine(fields: dict) -> LLMEngine:
+    """An engine at the reference's default configuration (16 slots, 2048
+    positions, buckets 32…2048, the paged pool unless ``kv_block_size=0``)
+    for one model at full width, with random weights from seed 0."""
+    engine = LLMEngine(LLMConfig(seed=0, **fields))
+    cfg, c = engine.model_config, engine.config
+    if isinstance(cfg, LlamaConfig):
+        want = (12, 12, 4, 768, 2048, 32000)
+        got = (cfg.n_layer, cfg.n_head, cfg.n_kv_head, cfg.d_model, cfg.d_ff, cfg.vocab_size)
+    else:
+        want = (12, 12, 12, 768, 3072, 50304)
+        got = (cfg.n_layer, cfg.n_head, cfg.n_head, cfg.d_model, cfg.d_ff, cfg.vocab_size)
+    assert got == want, cfg
+    assert (c.max_slots, c.max_seq, engine.paged) == (16, 2048, "kv_block_size" not in fields)
+    kh = want[2]
+    if engine.paged:
+        # 16 slots x 128 blocks, halved, plus the scratch block.
+        assert engine.pool["k"].shape == (12, 1025, kh, 16, 64), engine.pool["k"].shape
+    else:
+        assert engine.cache["k"].shape == (12, 16, kh, 2048, 64), engine.cache["k"].shape
+    return engine
+
+
+def kv_bytes(engine) -> int:
+    kv = engine.pool if engine.paged else engine.cache
+    return sum(t.numel() * t.element_size() for t in kv.values())
+
+
+def token_ids(rng, engine):
+    """Random prompt ids below the model's real vocabulary (GPT-2's 50257
+    inside its padded 50304; Llama's 32000)."""
+    vocab = engine.model_config.vocab_size
+    if engine._model is gpt2:
+        vocab = min(vocab, 50257)
+    return lambda n: rng.integers(0, vocab, n).tolist()
+
+
+def serve_engine(engine, rng) -> dict:
+    """One serving path: 6 requests of ~20 to ~1000 prompt tokens through
+    ``engine``, two of them sharing a 64-token prefix, with the kernels'
+    launch counts zeroed just before and read just after; then a lone
+    1000-token prompt for its TTFT."""
+    ids = token_ids(rng, engine)
     # Warm-up request (cuBLAS handles, allocator), not part of the run.
     engine.generate([ids(40)], SamplingParams(max_tokens=2))
 
@@ -305,6 +386,7 @@ def serve_engine(rng) -> dict:
     }
     hits0 = engine.stats["prefix_hits"]
     ttft0 = len(engine._ttft_window)
+    shared_refcounts = []
     attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
     t0 = time.perf_counter()
     for rid, p in prompts.items():
@@ -321,6 +403,12 @@ def serve_engine(rng) -> dict:
             decode_s += dt
             decode_steps += 1
             decode_tokens += engine.stats["tokens_generated"] - before
+        b = engine.requests.get("shared_b")
+        if engine.paged and b is not None and b.slot >= 0:
+            # shared_b runs on shared_a's pooled prefix blocks, not a copy.
+            entry = next(e for e in engine._prefix_pool.values() if e["tokens"] == tuple(prefix))
+            assert b.blocks[: len(entry["blocks"])] == entry["blocks"], (b.blocks, entry)
+            shared_refcounts.append(min(engine.block_mgr.refcount(x) for x in entry["blocks"]))
     wall_s = time.perf_counter() - t0
     launches = attention.flash_fwd_launches  # read just after
     bwd_launches = attention.flash_bwd_launches
@@ -333,10 +421,18 @@ def serve_engine(rng) -> dict:
     for rid, r in by_id.items():
         ok = len(r.generated) == MAX_TOKENS or r.generated[-1] == r.stop_token
         assert r.error is None and ok, (rid, r.error, len(r.generated))
-        assert all(0 <= t < cfg.vocab_size for t in r.generated), rid
+        assert all(0 <= t < engine.model_config.vocab_size for t in r.generated), rid
     assert hits == 1, f"expected one prefix hit (shared_b), got {hits}"
-    assert launches == cfg.n_layer * fresh, (launches, fresh)
     assert bwd_launches == 0, bwd_launches  # serving runs no backward
+    paged_run = {}
+    if engine.paged:
+        pinned = set().union(*(e["blocks"] for e in engine._prefix_pool.values()))
+        kv = engine.kv_stats()
+        assert shared_refcounts and min(shared_refcounts) >= 2, shared_refcounts
+        assert kv["blocks_used"] == len(pinned), (kv, len(pinned))  # only the pool's pins
+        assert not engine.block_tables.any()
+        paged_run = dict(shared_block_refcounts=sorted(set(shared_refcounts)),
+                         blocks_pinned_after=len(pinned), kv_stats=kv)
     ttft_ms = [round(v * 1e3, 3) for _, v in list(engine._ttft_window)[ttft0:]]
 
     # One request alone on the idle engine: its TTFT is its own prefill.
@@ -345,8 +441,8 @@ def serve_engine(rng) -> dict:
     engine.pop_finished()
     alone_ttft_ms = engine._ttft_window[-1][1] * 1e3
     return dict(
-        engine=engine, launches=launches, bwd_launches=bwd_launches, fresh_prefills=fresh,
-        prefix_hits=hits,
+        launches=launches, bwd_launches=bwd_launches, fresh_prefills=fresh,
+        prefix_hits=hits, **paged_run,
         steps=steps, wall_s=wall_s, ttft_ms_in_admission_order=ttft_ms,
         ttft_ms_alone_1000=alone_ttft_ms,
         decode_tok_s=decode_tokens / decode_s if decode_s else 0.0,
@@ -354,40 +450,67 @@ def serve_engine(rng) -> dict:
         generated={rid: len(r.generated) for rid, r in by_id.items()},
         first_tokens={rid: r.generated[0] for rid, r in by_id.items()},
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+        kv_gb=kv_bytes(engine) / 1e9,
         prompt=prompts["p300"],
     )
 
 
-def check_first_token_logits(engine, prompt, first_token) -> dict:
-    """First-token logits of one prompt through the kernel (the engine's
-    own path) and through the plain attention, on the card, in bf16; the
-    f32 run of the plain attention shows bf16's own noise floor."""
-    cfg = engine.model_config
+def prefill_logits(engine, prompt, cfg, params) -> torch.Tensor:
+    """First-token logits of ``prompt`` in the 512-row bucket the engine
+    gives it: through the dense family's ``prefill`` on a fresh one-slot
+    cache, or, for a paged engine, through ``paged_prefill`` on a fresh
+    pool with the engine's table width."""
     T = len(prompt)
     toks = torch.tensor([prompt + [0] * (512 - T)], device=engine.device)
-    lengths = torch.tensor([T], device=engine.device)
-    out = {}
+    if not engine.paged:
+        cache = engine._decode_mod.init_kv_cache(cfg, 1, 512, device=engine.device)
+        return engine._decode_mod.prefill(params, toks, torch.tensor([T], device=engine.device),
+                                          cache, cfg)[1][0]
+    bs = engine._block_size
+    pool = paged.init_block_pool(cfg, 512 // bs + 1, bs, device=engine.device)
+    table = torch.zeros(engine._table_width, dtype=torch.long, device=engine.device)
+    table[: 512 // bs] = torch.arange(1, 512 // bs + 1)
+    return paged.paged_prefill(params, toks, T, 0, table, pool, cfg, block_size=bs)[1]
+
+
+def check_first_token_logits(engine, prompt, first_token, dense_check=None) -> dict:
+    """First-token logits of one prompt, on the card, in bf16. A dense
+    engine's own path (the kernel) is held against the plain attention, and
+    the f32 run of the plain attention shows bf16's own noise floor. A paged
+    engine's path is held against its family's dense plain-attention
+    logits (``dense_check``, same weights from the same seed) for exact
+    equality: both run the same plain products at the same rounding points,
+    and the columns the paged row adds are masked, so any difference is a
+    paging fault (a position read from or written to the wrong block)."""
+    cfg = engine.model_config
     with torch.no_grad():
-        for name, c, params in (
-            ("cuda", cfg, engine._cparams),
-            ("plain", dataclasses.replace(cfg, attn_impl="reference"), engine._cparams),
-            ("plain_f32",
-             dataclasses.replace(cfg, attn_impl="reference", dtype=torch.float32),
-             engine.params),
-        ):
-            cache = gpt2_decode.init_kv_cache(c, 1, 512, device=engine.device)
-            out[name] = gpt2_decode.prefill(params, toks, lengths, cache, c)[1][0]
-    for v in out.values():
+        got = prefill_logits(engine, prompt, cfg, engine._cparams)
+        if dense_check is None:
+            plain = prefill_logits(
+                engine, prompt, dataclasses.replace(cfg, attn_impl="reference"), engine._cparams
+            )
+            plain_f32 = prefill_logits(
+                engine, prompt,
+                dataclasses.replace(cfg, attn_impl="reference", dtype=torch.float32),
+                engine.params,
+            )
+            noise = (plain - plain_f32).abs().max().item()
+            scale = plain_f32.abs().max().item()
+        else:
+            assert torch.equal(engine.params["wte"], dense_check["wte"]), "not the dense run's weights"
+            plain, noise, scale = dense_check["plain"], dense_check["noise"], dense_check["scale"]
+    for v in (got, plain):
         assert v.shape == (cfg.vocab_size,) and bool(torch.isfinite(v).all())
-    diff = (out["cuda"] - out["plain"]).abs().max().item()
-    noise = (out["plain"] - out["plain_f32"]).abs().max().item()
-    scale = out["plain_f32"].abs().max().item()
-    # The kernel may move the logits by no more than bf16 itself does.
-    tol = max(2.0 * noise, 2e-2)
-    assert int(out["cuda"].argmax()) == first_token, "engine's first token != kernel argmax"
-    assert diff <= tol, f"first-token logits: kernel vs plain {diff} > {tol}"
-    return dict(max_abs_diff=diff, bf16_vs_f32=noise, tol=tol, max_abs_logit=scale,
-                argmax_equal=int(out["cuda"].argmax()) == int(out["plain"].argmax()))
+    diff = (got - plain).abs().max().item()
+    # The kernel may move the logits by no more than bf16 itself does; paging
+    # may not move them at all.
+    tol = max(2.0 * noise, 2e-2) if dense_check is None else 0.0
+    assert int(got.argmax()) == first_token, "engine's first token != its path's argmax"
+    assert diff <= tol, f"first-token logits: engine path vs plain {diff} > {tol}"
+    out = dict(max_abs_diff=diff, bf16_vs_f32=noise, tol=tol, max_abs_logit=scale,
+               argmax_equal=int(got.argmax()) == int(plain.argmax()))
+    keep = dict(plain=plain, noise=noise, scale=scale, wte=engine.params["wte"])
+    return out, keep
 
 
 # Device kernels by kind, from the first matching substring of their names.
@@ -445,7 +568,7 @@ def profile_engine(engine, rng) -> dict:
     """Where a step's time goes, over (a) one step that prefills a
     1000-token prompt on an idle engine and decodes it once, and (b) 8
     decode steps with 6 requests in flight."""
-    ids = lambda n: rng.integers(0, 50257, n).tolist()  # noqa: E731
+    ids = token_ids(rng, engine)
     window = functools.partial(profile_window, engine.step)
 
     engine.add_request("prof-prefill", ids(1000), SamplingParams(max_tokens=2))
@@ -586,25 +709,45 @@ def main() -> int:
 
     fwd_rows = check_flash_kernel(dev)
     bwd_rows = check_flash_bwd_kernel(dev)
-    run = serve_engine(np.random.default_rng(0))
-    engine = run.pop("engine")
-    logits = check_first_token_logits(engine, run.pop("prompt"), run["first_tokens"]["p300"])
-    print(json.dumps({"engine": run, "first_token_logits": logits}), flush=True)
-    print(json.dumps({"profile": profile_engine(engine, np.random.default_rng(1))}), flush=True)
-    del engine
-    torch.cuda.empty_cache()
+    serve_launches, dense_checks = {}, {}
+    for name, fields, per_layer in SERVE_PATHS:
+        t_phase = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        engine = build_engine(fields)
+        run = serve_engine(engine, np.random.default_rng(0))
+        family = type(engine.model_config).__name__
+        assert run["launches"] == per_layer * engine.model_config.n_layer * run["fresh_prefills"], (
+            name, run["launches"], run["fresh_prefills"])
+        serve_launches[name] = (run["launches"], run["bwd_launches"])
+        logits, keep = check_first_token_logits(
+            engine, run.pop("prompt"), run["first_tokens"]["p300"], dense_checks.get(family)
+        )
+        if not engine.paged:
+            dense_checks[family] = keep
+        prof = profile_engine(engine, np.random.default_rng(1))
+        print(json.dumps({"serve": {"path": name, "model": family, "paged": engine.paged,
+                                    "engine": run, "first_token_logits": logits,
+                                    "profile": prof,
+                                    "phase_s": time.perf_counter() - t_phase}}), flush=True)
+        del engine, keep
+        torch.cuda.empty_cache()
+    del dense_checks
 
     train = train_gpt2(dev, train_config())
     print(json.dumps({"train": train}), flush=True)
 
-    fwd_head = next(r for r in fwd_rows if (r["B"], r["S"]) == (1, HEADLINE_S))
+    fwd_head = next(
+        r for r in fwd_rows if (r["layout"], r["B"], r["S"]) == ("qkv_views", 1, HEADLINE_S)
+    )
     bwd_head = next(r for r in bwd_rows if (r["B"], r["S"]) == (TRAIN_B, TRAIN_S))
     fwd = kernel_entry("flash_fwd", built, fwd_rows, fwd_head,
-                       {"serve": run["launches"], "train": train["launches"]["flash_fwd"]},
+                       {**{k: f for k, (f, _) in serve_launches.items()},
+                        "train": train["launches"]["flash_fwd"]},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
     bwd = kernel_entry("flash_bwd", built, bwd_rows, bwd_head,
-                       {"serve": run["bwd_launches"], "train": train["launches"]["flash_bwd"]},
+                       {**{k: b for k, (_, b) in serve_launches.items()},
+                        "train": train["launches"]["flash_bwd"]},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)

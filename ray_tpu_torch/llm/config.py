@@ -1,11 +1,13 @@
 """LLM tier configuration. Port of ``ray_tpu/llm/config.py``.
 
-The port's engine serves the dense KV cache only so far, so this config
-holds only the fields it reads. Three of them name later work and make the
-engine raise ``NotImplementedError`` when set: ``kv_block_size > 0`` (the
-paged cache), ``spec_decode_tokens > 0`` and ``tensor_parallelism > 1``.
-The reference's model id, paged pool size, replica placement and draft
-model fields arrive with the code that reads them.
+The config holds only the fields the port's engine reads: the model (a
+``GPT2Config`` or a ``LlamaConfig``), the serving shape, the KV cache (the
+paged pool by default, as in the reference: ``kv_block_size=16`` and
+``num_kv_blocks``; 0 selects the dense per-slot cache), weights, prefix
+caching and chunked prefill. Two fields name later work and make the
+engine raise ``NotImplementedError`` when set: ``spec_decode_tokens > 0``
+and ``tensor_parallelism > 1``. The reference's model id, replica
+placement and draft model fields arrive with the code that reads them.
 """
 
 from __future__ import annotations
@@ -24,15 +26,19 @@ class SamplingParams:
 
 @dataclasses.dataclass
 class LLMConfig:
-    # None -> GPT2Config.gpt2_125m(); tests pass a tiny config.
+    # None -> GPT2Config.gpt2_125m(); or a LlamaConfig; tests pass tiny ones.
     model_config: Any = None
     # Serving shape
     max_slots: int = 16  # concurrent sequences (continuous-batching slots)
     max_seq: int = 2048  # cache length (prompt + generation)
     prefill_buckets: tuple = (32, 64, 128, 256, 512, 1024, 2048)
-    # 0 is the dense per-slot cache. > 0 selects the reference's paged
-    # cache (its default there is 16), which is not ported yet.
-    kv_block_size: int = 0
+    # Paged KV cache: kv_block_size > 0 -> requests hold block tables over
+    # a shared device pool of num_kv_blocks blocks; admission reserves
+    # ceil(min(prompt+max_tokens, max_seq)/block) blocks. 0 -> the dense
+    # per-slot cache. num_kv_blocks None -> half the dense-equivalent,
+    # floored at one max-length request, plus the scratch block.
+    kv_block_size: int = 16
+    num_kv_blocks: Optional[int] = None
     # Tensor-parallel degree (only 1 is ported).
     tensor_parallelism: int = 1
     # Initial weights: a path to a pickled params pytree of numpy arrays,

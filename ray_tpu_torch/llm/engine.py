@@ -1,27 +1,38 @@
-"""LLMEngine: slot-based continuous batching over the PyTorch decode path.
-Port of the dense-KV path of ``ray_tpu/llm/engine.py``.
+"""LLMEngine: slot-based continuous batching over the PyTorch decode paths.
+Port of ``ray_tpu/llm/engine.py`` (its paged and dense caches, both model
+families).
 
-- **Dense per-slot cache** (``kv_block_size=0``): ``[L, max_slots, H,
-  max_seq, Dh]`` k and v tensors, updated in place. A fresh prompt prefills
-  through :func:`ray_tpu_torch.models.gpt2_decode.prefill`, whose causal
-  attention is the hand-written CUDA flash kernel on an H100.
+- **Paged KV cache** (``kv_block_size > 0``, the default, as in the
+  reference): requests hold block tables over one shared pool
+  (:mod:`ray_tpu_torch.models.paged`), with host-side refcounts
+  (:class:`~ray_tpu_torch.llm.block_manager.BlockManager`). Admission
+  reserves the blocks a request can ever need, pooled prefixes are shared
+  by reference with no copy, and the pool gives way to an admission under
+  pressure. Paged prefill and decode are plain torch products, as the
+  reference's are plain ``jnp``: no kernel runs on this path.
+- **Dense per-slot cache** (``kv_block_size=0``): ``[L, max_slots, KH,
+  max_seq, Dh]`` k and v tensors, updated in place. A fresh prompt
+  prefills through the family's ``prefill``, whose causal attention is the
+  hand-written CUDA flash kernel on an H100.
+- **Both families**, GPT-2 and Llama, picked at one dispatch point
+  (:func:`_model_ops`); the rest of the engine is family-agnostic.
 - **Continuous batching**: a request holds a slot from admission until
   EOS/max_tokens; new requests prefill into freed slots between decode
   steps. The decode batch is always ``[max_slots]``: idle slots decode
-  garbage that is never read, as in the reference.
-- **Prefix caching** and **chunked prefill** behave as the reference's
-  dense path does, with the same bucket guards: every padded write is
-  checked to fit inside ``max_seq`` before it is issued.
+  garbage that is never read (paged: into the scratch block), as in the
+  reference.
+- **Prefix caching** and **chunked prefill** behave as the reference's do,
+  with the same bucket guards: every padded write is checked to fit inside
+  ``max_seq`` before it is issued.
 
-Host state (positions, last tokens, slot table) lives in numpy. Each step
-reads the device back once, for the decode logits; admission reads back
-the last-logits of a prompt to sample its first token, as the reference
-does.
+Host state (positions, last tokens, slot table, block tables) lives in
+numpy. Each step reads the device back once, for the decode logits;
+admission reads back the last-logits of a prompt to sample its first
+token, as the reference does.
 
-Not ported yet (they raise ``NotImplementedError``): the paged KV cache
-(``kv_block_size > 0``), speculative decoding, tensor parallelism and the
-disaggregated prefill/decode handoff. The reference's metrics and flight
-recorder telemetry are not ported either.
+Not ported yet (they raise ``NotImplementedError``): speculative decoding,
+tensor parallelism and the disaggregated prefill/decode handoff. The
+reference's metrics and flight recorder telemetry are not ported either.
 """
 
 from __future__ import annotations
@@ -35,12 +46,33 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch.llm.block_manager import BlockManager
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer
-from ray_tpu_torch.models import gpt2, gpt2_decode
-from ray_tpu_torch.models.convert import gpt2_params_from_numpy
+from ray_tpu_torch.models import convert, gpt2, gpt2_decode, llama, llama_decode, paged
 from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
 from ray_tpu_torch.util.prefix_digest import BYTE_BOS_SCHEME, chain_digests
+
+
+def _validate_block_multiple(name: str, value: int, block_size: int) -> None:
+    """Config check for every token-granularity knob that must align with
+    the paged-KV block size (pooled prefixes are shared, and prefill chunks
+    written, at block granularity)."""
+    if value % block_size:
+        raise ValueError(
+            f"{name} ({value}) must be a multiple of kv_block_size "
+            f"({block_size}): pooled prefixes are shared and prefill "
+            f"chunks written at block granularity"
+        )
+
+
+def _model_ops(cfg):
+    """(model module, decode module, converter from numpy) for a model
+    config's family: the one dispatch point. Everything else in the engine
+    is family-agnostic (the cache layouts agree: [L, B, heads, S, Dh])."""
+    if isinstance(cfg, llama.LlamaConfig):
+        return llama, llama_decode, convert.llama_params_from_numpy
+    return gpt2, gpt2_decode, convert.gpt2_params_from_numpy
 
 
 @dataclasses.dataclass
@@ -53,12 +85,15 @@ class _Request:
     generated: list = dataclasses.field(default_factory=list)
     slot: int = -1
     finished: bool = False
+    blocks: list = dataclasses.field(default_factory=list)  # paged mode
     # Chunked prefill: the request holds a slot but is still prefilling
     # its prompt one chunk per step; pf_next is the next absolute prompt
     # position to prefill. No token samples until pf_next reaches the
     # prompt length.
     prefilling: bool = False
     pf_next: int = 0
+    # Admission failure surfaced through pop_finished (a reservation no
+    # pool state can satisfy fails the request, not the engine loop).
     error: Optional[str] = None
     # Admission wall-clock, for the rolling TTFT window.
     t_admit: float = 0.0
@@ -74,10 +109,6 @@ class LLMEngine:
     ):
         """``device`` is the card unless the caller asks for ``"cpu"``; a
         CUDA request with no GPU raises."""
-        if config.kv_block_size > 0:
-            raise NotImplementedError(
-                "the paged KV cache is not ported yet; pass kv_block_size=0"
-            )
         if config.spec_decode_tokens > 0:
             raise NotImplementedError("speculative decoding is not ported yet")
         if config.tensor_parallelism > 1:
@@ -89,9 +120,11 @@ class LLMEngine:
         cfg = config.build_model_config()
         if cfg.vocab_size < self.tokenizer.vocab_size:
             raise ValueError("model vocab smaller than tokenizer vocab")
-        if config.max_seq > cfg.max_seq:
-            # Positions past the model's table would index wpe out of
-            # range (the reference clamps them silently).
+        self._model, self._decode_mod, from_numpy = _model_ops(cfg)
+        if self._model is gpt2 and config.max_seq > cfg.max_seq:
+            # Positions past GPT-2's learned table would index wpe out of
+            # range (the reference clamps them silently). Llama has no
+            # table: its RoPE tables are computed for the cache length.
             raise ValueError(
                 f"max_seq ({config.max_seq}) exceeds the model's position "
                 f"table ({cfg.max_seq})"
@@ -100,20 +133,41 @@ class LLMEngine:
 
         if config.weights_path:
             with open(config.weights_path, "rb") as f:
-                params = gpt2_params_from_numpy(pickle.load(f), cfg, self.device)
+                params = from_numpy(pickle.load(f), cfg, self.device)
         else:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
-            params = gpt2.init_params(gen, cfg, self.device)
+            params = self._model.init_params(gen, cfg, self.device)
         self.params = params
         # Matmul weights cast once to the activation dtype (the reference
         # casts per matmul; the values are identical).
-        self._cparams = gpt2.compute_params(params, cfg)
+        self._cparams = self._model.compute_params(params, cfg)
 
         B, S = config.max_slots, config.max_seq
-        self.cache = gpt2_decode.init_kv_cache(cfg, B, S, device=self.device)
+        self.paged = config.kv_block_size > 0
+        if self.paged:
+            bs = config.kv_block_size
+            if S % bs:
+                raise ValueError("max_seq must be a multiple of kv_block_size")
+            if config.enable_prefix_caching:
+                _validate_block_multiple("prefix_chunk", config.prefix_chunk, bs)
+            if config.prefill_chunk_tokens:
+                _validate_block_multiple("prefill_chunk_tokens", config.prefill_chunk_tokens, bs)
+            self._block_size = bs
+            self._table_width = S // bs
+            n = config.num_kv_blocks or max(
+                (B * self._table_width) // 2, self._table_width + 1
+            ) + 1  # +1: block 0 is scratch
+            self.block_mgr = BlockManager(n)
+            self.pool = paged.init_block_pool(cfg, n, bs, device=self.device)
+            self.block_tables = np.zeros((B, self._table_width), np.int32)
+            # The family's hook table (and Llama's RoPE tables), built once.
+            self._hooks = paged._family(cfg, S, self.device)
+        else:
+            self.cache = self._decode_mod.init_kv_cache(cfg, B, S, device=self.device)
         # Prefix pool: key (chunk-aligned token tuple hash, length) ->
-        # {"k","v": [L, 1, H, P, Dh] tensors, "len", "used", "tokens"}.
-        # LRU within max_prefix_cache_tokens.
+        # {"len", "used", "tokens"} and, dense, {"k","v": [L, 1, KH, P, Dh]
+        # tensors}; paged, {"blocks": the shared block ids}. LRU within
+        # max_prefix_cache_tokens.
         self._prefix_pool: dict = {}
         self._prefix_tokens_cached = 0
         self._prefix_clock = 0
@@ -159,13 +213,13 @@ class LLMEngine:
 
     # -- per-slot bodies (in-place cache update) -------------------------------
     def _slot_view(self, slot: int) -> dict:
-        """Slot ``slot``'s cache rows as ``[L, 1, H, S, Dh]`` views: the
+        """Slot ``slot``'s cache rows as ``[L, 1, KH, S, Dh]`` views: the
         model functions write through them into the engine's cache."""
         return {n: t[:, slot : slot + 1] for n, t in self.cache.items()}
 
     def _prefill_impl(self, tokens: np.ndarray, length: int, slot: int):
         """Prefill ONE slot: tokens [1, T]; returns last-logits [vocab]."""
-        _, logits = gpt2_decode.prefill(
+        _, logits = self._decode_mod.prefill(
             self._cparams,
             self._h2d(tokens),
             self._h2d([length]),
@@ -178,7 +232,7 @@ class LLMEngine:
         """Prefill ONE slot's suffix on top of a cached prefix already in
         that slot's rows [0, start). The caller's bucket choice keeps
         ``start + T <= max_seq``; the model function raises otherwise."""
-        _, logits = gpt2_decode.prefill_continue(
+        _, logits = self._decode_mod.prefill_continue(
             self._cparams,
             self._h2d(tokens),
             self._h2d([length]),
@@ -188,8 +242,24 @@ class LLMEngine:
         )
         return logits[0]
 
+    def _pg_prefill_impl(self, tokens: np.ndarray, length: int, start: int, row: np.ndarray):
+        """Paged prefill of positions [start, start+T) through the block
+        table ``row``, in place; returns last-logits [vocab]."""
+        _, logits = paged.paged_prefill(
+            self._cparams,
+            self._h2d(tokens),
+            length,
+            start,
+            self._h2d(row),
+            self.pool,
+            self.model_config,
+            block_size=self._block_size,
+            hooks=self._hooks,
+        )
+        return logits
+
     def _copy_prefix_in_impl(self, pk, pv, slot: int) -> None:
-        """Write a pooled prefix ([L, 1, H, P, Dh]) into a slot's rows
+        """Write a pooled prefix ([L, 1, KH, P, Dh]) into a slot's rows
         [0, P), in place."""
         P = pk.shape[3]
         self.cache["k"][:, slot : slot + 1, :, :P] = pk
@@ -263,9 +333,10 @@ class LLMEngine:
                 return entry
         return None
 
-    def _insert_prefix(self, prompt: list, slot: int) -> None:
-        """Pool the prompt's longest aligned prefix: copy the slot's rows
-        out."""
+    def _insert_prefix(self, prompt: list, slot: int, blocks=None) -> None:
+        """Pool the prompt's longest aligned prefix. Dense mode copies the
+        slot's rows out; paged mode takes a reference on the request's
+        first P/block blocks (``blocks``): sharing, not copying."""
         if not self.config.enable_prefix_caching:
             return
         p = self._aligned_prefix_len(len(prompt))
@@ -283,30 +354,52 @@ class LLMEngine:
             and self._prefix_tokens_cached + p > self.config.max_prefix_cache_tokens
         ):
             self._evict_one_prefix()
-        k, v = self._copy_prefix_out_impl(slot, p)
-        self._prefix_pool[key] = {
-            "len": p,
-            "used": self._prefix_clock,
-            "tokens": tuple(prompt[:p]),
-            "k": k,
-            "v": v,
-        }
+        entry = {"len": p, "used": self._prefix_clock, "tokens": tuple(prompt[:p])}
+        if self.paged:
+            shared = list(blocks[: p // self._block_size])
+            self.block_mgr.incref(shared)
+            entry["blocks"] = shared
+        else:
+            entry["k"], entry["v"] = self._copy_prefix_out_impl(slot, p)
+        self._prefix_pool[key] = entry
         self._prefix_tokens_cached += p
         self._refresh_digest_snapshot()
 
-    def _evict_one_prefix(self) -> bool:
-        """Drop the LRU prefix-pool entry, returning its tokens to the
-        budget. The caller refreshes the digest snapshot."""
-        if not self._prefix_pool:
+    def _evict_one_prefix(self, keep=None) -> bool:
+        """Drop the LRU prefix-pool entry (skipping ``keep``), returning its
+        tokens to the budget and its block references to the pool. The
+        caller refreshes the digest snapshot, once per eviction wave."""
+        victims = [k for k, e in self._prefix_pool.items() if e is not keep]
+        if not victims:
             return False
-        victim = min(self._prefix_pool, key=lambda k: self._prefix_pool[k]["used"])
-        self._prefix_tokens_cached -= self._prefix_pool.pop(victim)["len"]
+        victim = min(victims, key=lambda k: self._prefix_pool[k]["used"])
+        evicted = self._prefix_pool.pop(victim)
+        self._prefix_tokens_cached -= evicted["len"]
+        if "blocks" in evicted:
+            self.block_mgr.decref(evicted["blocks"])
         return True
 
+    def _evict_prefixes_until(self, need: int, keep=None) -> None:
+        """LRU-evict prefix-pool entries until ``need`` blocks are
+        allocatable or nothing evictable remains. Entries whose blocks are
+        still shared by running requests free nothing when dropped; the
+        loop goes on past them."""
+        evicted = False
+        while not self.block_mgr.can_alloc(need):
+            if not self._evict_one_prefix(keep=keep):
+                break
+            evicted = True
+        if evicted:
+            self._refresh_digest_snapshot()
+
     def _admit_waiting(self) -> list:
-        """Admit waiting requests into free slots (FIFO); returns requests
-        that finished DURING admission (max_tokens=1 / stop token at
-        prefill)."""
+        """Admit waiting requests into free slots; returns requests that
+        finished during admission (max_tokens=1, a stop token at prefill,
+        or an error).
+
+        FIFO: the first request that cannot be admitted (no slot, or, paged,
+        not enough free KV blocks) stops the wave, so a big request is not
+        starved by small ones slipping past it."""
         admit_finished: list = []
         waiting = [r for r in self.requests.values() if r.slot < 0 and not r.finished]
         for req in waiting:
@@ -314,11 +407,21 @@ class LLMEngine:
                 slot = self.slot_free.index(True)
             except ValueError:
                 return admit_finished
-            logits = self._admit_dense(req, slot)
+            if self.paged:
+                logits = self._admit_paged(req, slot)
+            else:
+                logits = self._admit_dense(req, slot)
+            if req.finished:
+                # A reservation no pool state can satisfy finished with an
+                # error; the wave goes on for the admittable ones.
+                admit_finished.append(req)
+                continue
             if req.prefilling:
                 # Chunked prefill took the slot but defers its first
                 # sample to _advance_prefills; keep admitting.
                 continue
+            if logits is None:
+                return admit_finished  # the pool is short right now
             T = len(req.prompt)
             tok = self._sample(self._d2h(logits), req)
             req.slot = slot
@@ -337,6 +440,85 @@ class LLMEngine:
         self.stats["tokens_generated"] += 1
         now = _time.perf_counter()
         self._ttft_window.append((_time.monotonic(), now - req.t_admit))
+
+    def _admit_paged(self, req: _Request, slot: int):
+        """Reserve blocks, point the slot's table at them (sharing a pooled
+        prefix's blocks), prefill the suffix. Returns the last-logits, or
+        None when chunked prefill took the slot, when the pool cannot
+        cover the reservation right now, or when no pool state ever can
+        (the request then finishes with ``error``).
+
+        Admission reserves ceil(min(T + max_tokens, max_seq) / block)
+        blocks up front, so a running request never meets an exhausted
+        pool mid-decode."""
+        T = len(req.prompt)
+        bs = self._block_size
+        total = min(T + req.max_tokens, self.config.max_seq)
+        entry = self._find_prefix(req.prompt)
+        P = 0
+        if entry is not None:
+            # The suffix bucket must fit behind the prefix: a padded row
+            # past max_seq has no table entry (the reference would clamp it
+            # into the request's last real block). No fitting bucket -> a
+            # full prefill.
+            P = entry["len"]
+            rem = T - P
+            bucket = next(
+                (
+                    b
+                    for b in self.config.prefill_buckets
+                    if b >= rem and P + b <= self.config.max_seq
+                ),
+                None,
+            )
+            if bucket is None:
+                entry, P = None, 0
+        if entry is None:
+            rem = T
+            bucket = next(
+                (b for b in self.config.prefill_buckets if b >= T),
+                self.config.prefill_buckets[-1],
+            )
+        nb_total = -(-total // bs)
+        need = max(nb_total - P // bs, 0)
+        if nb_total > self.block_mgr.num_blocks - 1:
+            # The full table (shared prefix blocks included: they are live
+            # at the same time) can never fit the pool. Finish this request
+            # with an error instead of raising from every later step().
+            req.error = (
+                f"request {req.request_id} needs {nb_total} KV blocks but "
+                f"the pool only has {self.block_mgr.num_blocks - 1}; raise "
+                f"num_kv_blocks or lower max_tokens"
+            )
+            req.finished = True
+            return None
+        if not self.block_mgr.can_alloc(need):
+            # Under allocation pressure the prefix pool gives way (LRU),
+            # except the entry this request is about to share.
+            self._evict_prefixes_until(need, keep=entry)
+            if not self.block_mgr.can_alloc(need):
+                return None
+        shared: list = []
+        if entry is not None:
+            shared = list(entry["blocks"])
+            self.block_mgr.incref(shared)
+        table = shared + self.block_mgr.alloc(need)
+        req.blocks = table
+        row = np.zeros(self._table_width, np.int32)
+        row[: len(table)] = table
+        self.block_tables[slot] = row
+        if entry is not None:
+            self.stats["prefix_hits"] += 1
+            self.stats["prefix_tokens_reused"] += P
+        if self._chunks_feasible(P, T):
+            self._begin_chunked_prefill(req, slot, P)
+            return None
+        toks = np.zeros((1, bucket), np.int64)
+        toks[0, :rem] = req.prompt[P:]
+        logits = self._pg_prefill_impl(toks, rem, P, row)
+        self.stats["prefill_tokens"] += rem
+        self._insert_prefix(req.prompt, slot, blocks=table)
+        return logits
 
     def _admit_dense(self, req: _Request, slot: int):
         """Dense per-slot cache admission. Returns the prompt's
@@ -434,7 +616,10 @@ class LLMEngine:
         bucket = self._chunk_bucket(start, clen)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :clen] = req.prompt[start : start + clen]
-        logits = self._prefill_cont_impl(toks, clen, start, req.slot)
+        if self.paged:
+            logits = self._pg_prefill_impl(toks, clen, start, self.block_tables[req.slot])
+        else:
+            logits = self._prefill_cont_impl(toks, clen, start, req.slot)
         self.stats["prefill_tokens"] += clen
         self.stats["prefill_chunks"] += 1
         req.pf_next = start + clen
@@ -462,7 +647,7 @@ class LLMEngine:
             return []
         req.prefilling = False
         tok = self._sample(self._d2h(logits), req)
-        self._insert_prefix(req.prompt, req.slot)
+        self._insert_prefix(req.prompt, req.slot, blocks=req.blocks if self.paged else None)
         self._first_token(req, tok)
         self.positions[req.slot] = T
         self.last_tokens[req.slot] = tok
@@ -489,7 +674,17 @@ class LLMEngine:
             self._release_slot(req)
 
     def _release_slot(self, req: _Request) -> None:
+        """Return a request's slot and block references. Shared prefix
+        blocks stay alive under the pool's own references; the slot's table
+        points at the scratch block, so its garbage decode writes never
+        land in a block someone else now owns."""
         if req.slot >= 0:
+            if self.paged:
+                self.block_mgr.decref(req.blocks)
+                req.blocks = []
+                self.block_tables[req.slot] = 0
+                self.positions[req.slot] = 0
+                self.last_tokens[req.slot] = 0
             self.slot_free[req.slot] = True
             self._slot_req[req.slot] = None
             req.slot = -1
@@ -505,13 +700,28 @@ class LLMEngine:
         finished += self._admit_waiting()
         active = [r for r in self._slot_req if r is not None and not r.prefilling]
         if active:
-            _, logits = gpt2_decode.decode_step(
-                self._cparams,
-                self._h2d(self.last_tokens),
-                self._h2d(self.positions),
-                self.cache,
-                self.model_config,
-            )
+            # Prefilling slots decode too, as in the reference: their write
+            # lands at positions[slot] == pf_next, in their own block or
+            # row, where the next chunk overwrites it.
+            if self.paged:
+                _, logits = paged.paged_decode(
+                    self._cparams,
+                    self._h2d(self.last_tokens),
+                    self._h2d(self.positions),
+                    self._h2d(self.block_tables),
+                    self.pool,
+                    self.model_config,
+                    block_size=self._block_size,
+                    hooks=self._hooks,
+                )
+            else:
+                _, logits = self._decode_mod.decode_step(
+                    self._cparams,
+                    self._h2d(self.last_tokens),
+                    self._h2d(self.positions),
+                    self.cache,
+                    self.model_config,
+                )
             logits_np = self._d2h(logits)  # the decode step's one readback
             for req in active:
                 slot = req.slot
@@ -550,13 +760,15 @@ class LLMEngine:
         version = self._digest_version
         digests = list(self._digest_snapshot)
         lookups = self.stats["prefix_lookups"]
+        # The BlockManager holds at least one allocatable block.
+        kv_util = self.block_mgr.used_blocks / (self.block_mgr.num_blocks - 1) if self.paged else 0.0
         return {
             "scheme": BYTE_BOS_SCHEME if isinstance(self.tokenizer, ByteTokenizer) else "custom",
             "chunk": self.config.prefix_chunk,
             "digests": digests,
             "version": version,
             "hit_rate": (self.stats["prefix_hits"] / lookups) if lookups else 0.0,
-            "kv_util": 0.0,
+            "kv_util": kv_util,
             "prefill_tokens": self.stats["prefill_tokens"],
             "prefix_tokens_reused": self.stats["prefix_tokens_reused"],
         }
@@ -575,7 +787,16 @@ class LLMEngine:
         return any(not r.finished for r in self.requests.values())
 
     def kv_stats(self) -> dict:
-        return {"paged": False}
+        """Block-pool occupancy (paged mode) for routing and observability."""
+        if not self.paged:
+            return {"paged": False}
+        return {
+            "paged": True,
+            "block_size": self._block_size,
+            "blocks_total": self.block_mgr.num_blocks - 1,
+            "blocks_free": self.block_mgr.free_blocks,
+            "blocks_used": self.block_mgr.used_blocks,
+        }
 
     def pop_finished(self) -> list:
         done = [r for r in self.requests.values() if r.finished]

@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.models.gpt2 import GPT2Config
+from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.util.device import resolve_device
 
 
@@ -24,7 +25,7 @@ def _tensor(arr, device) -> torch.Tensor:
     return t.to(device)
 
 
-def _expected_shapes(cfg: GPT2Config) -> dict:
+def _gpt2_expected_shapes(cfg: GPT2Config) -> dict:
     L, D, F_, V, S = cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.max_seq
     return {
         "wte": (V, D),
@@ -48,13 +49,29 @@ def _expected_shapes(cfg: GPT2Config) -> dict:
     }
 
 
-def gpt2_params_from_numpy(tree: dict, cfg: GPT2Config, device="cuda") -> dict:
-    """The reference's dense GPT-2 params (numpy leaves) as torch tensors
-    on ``device`` (the card unless the caller asks for ``"cpu"``; a CUDA
-    request with no GPU raises), key for key and in their own dtype. Raises
-    on a missing or extra key or a shape that ``cfg`` does not expect."""
-    if "gate_w" in tree.get("blocks", {}):
-        raise NotImplementedError("mixture-of-experts GPT-2 is not ported yet")
+def _llama_expected_shapes(cfg: LlamaConfig) -> dict:
+    L, D, F_, V, KD = cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.kv_dim
+    return {
+        "wte": (V, D),
+        "blocks": {
+            "attn_norm": (L, D),
+            "wq": (L, D, D),
+            "wk": (L, D, KD),
+            "wv": (L, D, KD),
+            "wo": (L, D, D),
+            "mlp_norm": (L, D),
+            "w_gate": (L, D, F_),
+            "w_up": (L, D, F_),
+            "w_down": (L, F_, D),
+        },
+        "final_norm": (D,),
+        "lm_head": (D, V),
+    }
+
+
+def _from_numpy(tree: dict, spec: dict, device) -> dict:
+    """``tree``'s leaves as tensors on ``device``, key for key against
+    ``spec``; raises on a missing or extra key or an unexpected shape."""
     device = resolve_device(device)
 
     def walk(node, spec, path):
@@ -71,4 +88,21 @@ def gpt2_params_from_numpy(tree: dict, cfg: GPT2Config, device="cuda") -> dict:
             out[key] = _tensor(arr, device)
         return out
 
-    return walk(tree, _expected_shapes(cfg), "")
+    return walk(tree, spec, "")
+
+
+def gpt2_params_from_numpy(tree: dict, cfg: GPT2Config, device="cuda") -> dict:
+    """The reference's dense GPT-2 params (numpy leaves) as torch tensors
+    on ``device`` (the card unless the caller asks for ``"cpu"``; a CUDA
+    request with no GPU raises), key for key and in their own dtype. Raises
+    on a missing or extra key or a shape that ``cfg`` does not expect."""
+    if "gate_w" in tree.get("blocks", {}):
+        raise NotImplementedError("mixture-of-experts GPT-2 is not ported yet")
+    return _from_numpy(tree, _gpt2_expected_shapes(cfg), device)
+
+
+def llama_params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
+    """The reference's Llama params (numpy leaves) as torch tensors on
+    ``device``, with the same checks and bf16 handling as
+    :func:`gpt2_params_from_numpy`."""
+    return _from_numpy(tree, _llama_expected_shapes(cfg), device)

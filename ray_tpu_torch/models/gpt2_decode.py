@@ -72,12 +72,16 @@ def _finish_block(x, attn, p, cfg):
     return x + h @ p["fc2_w"].to(cfg.dtype) + p["fc2_b"].to(cfg.dtype)
 
 
-def _last_logits(params, x, lengths, cfg):
-    """Final LN, the hidden state after token lengths[b]-1, tied LM head."""
+def _logits(params, x, cfg):
+    """Final LN and the tied LM head: hidden states [..., D] -> f32 logits."""
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
+    return (x @ params["wte"].to(cfg.dtype).T).float()
+
+
+def _last_logits(params, x, lengths, cfg):
+    """Logits of the hidden state after token lengths[b]-1 of each row."""
     idx = (lengths - 1).long()[:, None, None].expand(-1, 1, x.shape[-1])
-    last = torch.gather(x, 1, idx)[:, 0]  # [B, D]
-    return (last @ params["wte"].to(cfg.dtype).T).float()
+    return _logits(params, torch.gather(x, 1, idx)[:, 0], cfg)  # [B, vocab]
 
 
 def prefill(
@@ -186,5 +190,4 @@ def decode_step(
         pattn = torch.softmax(s, dim=-1).to(cv.dtype)
         attn = torch.einsum("bhs,bhsd->bhd", pattn, cv)[:, :, None, :]
         x = _finish_block(x, attn, p, cfg)
-    x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])[:, 0]
-    return cache, (x @ params["wte"].to(cfg.dtype).T).float()
+    return cache, _logits(params, x[:, 0], cfg)

@@ -1,0 +1,239 @@
+"""Llama-family decoder in PyTorch: RMSNorm, RoPE, GQA, SwiGLU. Port of
+``ray_tpu/models/llama.py`` (inference: ``hidden``, ``forward``).
+
+Parameters are a plain dict with the reference's stacked layout (every
+per-layer leaf under ``params["blocks"]`` with a leading ``[L, ...]`` dim),
+so a JAX pytree converts key for key
+(:func:`ray_tpu_torch.models.convert.llama_params_from_numpy`). Activations
+run in ``cfg.dtype`` and parameters are kept in ``cfg.param_dtype``; each
+matmul weight is cast to the activation dtype where the reference casts it.
+
+Differences from GPT-2, as in the reference: RMSNorm (no mean-centring, no
+bias), rotary position embeddings (no learned position table), SwiGLU MLP,
+no biases, an untied output head, and grouped-query attention: each KV head
+is repeated for its group of query heads before the attention kernel.
+
+Not ported yet: ``loss_fn`` and the remat ladder (training), and the
+sp/pp meshes (ring attention, the pipeline), which raise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ray_tpu_torch.models.gpt2 import layer_params  # the same stacked layout
+from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.util.device import resolve_device
+
+Params = dict
+
+
+@dataclasses.dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 32000
+    n_layer: int = 12
+    n_head: int = 12
+    n_kv_head: int = 4  # grouped-query attention (n_head % n_kv_head == 0)
+    d_model: int = 768
+    d_ff: int = 2048  # SwiGLU hidden (~8/3 * d rounded to 256)
+    max_seq: int = 1024
+    rope_theta: float = 10000.0
+    dtype: Any = torch.bfloat16  # activation dtype
+    param_dtype: Any = torch.float32
+    attn_impl: str = "auto"  # "auto" | "cuda" | "reference"
+    rms_eps: float = 1e-5
+
+    @property
+    def head_dim(self) -> int:
+        assert self.d_model % self.n_head == 0
+        return self.d_model // self.n_head
+
+    @property
+    def kv_dim(self) -> int:
+        assert self.n_head % self.n_kv_head == 0
+        return self.n_kv_head * self.head_dim
+
+    @staticmethod
+    def llama_125m() -> "LlamaConfig":
+        return LlamaConfig()
+
+    @staticmethod
+    def tiny(
+        n_layer: int = 2,
+        d_model: int = 128,
+        n_head: int = 4,
+        n_kv_head: int = 2,
+        vocab_size: int = 512,
+        max_seq: int = 256,
+    ) -> "LlamaConfig":
+        return LlamaConfig(
+            vocab_size=vocab_size,
+            n_layer=n_layer,
+            n_head=n_head,
+            n_kv_head=n_kv_head,
+            d_model=d_model,
+            d_ff=2 * d_model,
+            max_seq=max_seq,
+        )
+
+
+# Leaves the reference casts to the activation dtype at each use; the norm
+# scales stay in f32.
+MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def init_params(
+    generator: torch.Generator, cfg: LlamaConfig, device: "str | torch.device" = "cuda"
+) -> Params:
+    """N(0, 0.02) weights, the output projections of each block scaled by
+    1/sqrt(2*n_layer), ones for the norm scales. Draws on the generator's
+    device, then moves to ``device``: the card unless the caller asks for
+    ``"cpu"`` (a CUDA request with no GPU raises). The numbers differ from
+    the reference's ``jax.random`` for the same seed."""
+    device = resolve_device(device)
+    std = 0.02
+    pd = cfg.param_dtype
+    L, D, F_, V, KD = cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.kv_dim
+    resid_std = std / (2 * L) ** 0.5
+    gen_dev = generator.device
+
+    def normal(shape, s=std):
+        x = torch.randn(shape, generator=generator, device=gen_dev, dtype=torch.float32)
+        return (x * s).to(device=device, dtype=pd)
+
+    def ones(shape):
+        return torch.ones(shape, dtype=pd, device=device)
+
+    return {
+        "wte": normal((V, D)),
+        "blocks": {
+            "attn_norm": ones((L, D)),
+            "wq": normal((L, D, D)),
+            "wk": normal((L, D, KD)),
+            "wv": normal((L, D, KD)),
+            "wo": normal((L, D, D), resid_std),
+            "mlp_norm": ones((L, D)),
+            "w_gate": normal((L, D, F_)),
+            "w_up": normal((L, D, F_)),
+            "w_down": normal((L, F_, D), resid_std),
+        },
+        "final_norm": ones((D,)),
+        "lm_head": normal((D, V)),
+    }
+
+
+def compute_params(params: Params, cfg: LlamaConfig) -> Params:
+    """The same tree with every matmul weight, the embedding and the output
+    head cast once to the activation dtype (the reference's per-matmul
+    ``.astype(cfg.dtype)`` gives the same values); norm scales stay in
+    their parameter dtype."""
+    blocks = {
+        k: (v.to(cfg.dtype) if k in MATMUL_LEAVES else v)
+        for k, v in params["blocks"].items()
+    }
+    out = dict(params, blocks=blocks)
+    out["wte"] = params["wte"].to(cfg.dtype)
+    out["lm_head"] = params["lm_head"].to(cfg.dtype)
+    return out
+
+
+def _rms_norm(x, scale, eps):
+    x32 = x.float()
+    rms = torch.rsqrt((x32 * x32).mean(dim=-1, keepdim=True) + eps)
+    return (x32 * rms * scale).to(x.dtype)
+
+
+def rope_tables(cfg: LlamaConfig, seq: int, device="cpu"):
+    """(cos, sin) ``[seq, head_dim/2]`` f32 rotary tables."""
+    half = cfg.head_dim // 2
+    freqs = cfg.rope_theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
+    angles = torch.arange(seq, dtype=torch.float32, device=device)[:, None] * freqs[None, :]
+    return torch.cos(angles), torch.sin(angles)
+
+
+def _apply_rope(t, cos, sin):
+    """The half-split (GPT-NeoX/HF) rotation of ``t [B, n, T, Dh]``:
+    dimension i pairs with i + Dh/2. ``cos``/``sin`` are the tables' rows
+    for t's positions, ``[T, Dh/2]`` (one position per row for the whole
+    batch) or ``[B, T, Dh/2]`` (per slot); they are cast to t's dtype before
+    the multiply, as in the reference. The result is contiguous."""
+    t1, t2 = t.chunk(2, dim=-1)
+    c, s = cos.unsqueeze(-3).to(t.dtype), sin.unsqueeze(-3).to(t.dtype)
+    return torch.cat([t1 * c - t2 * s, t1 * s + t2 * c], dim=-1)
+
+
+def expand_kv(t, group: int):
+    """GQA: ``[B, KH, S, Dh]`` -> ``[B, KH*group, S, Dh]``, each KV head
+    repeated for its ``group`` query heads in a row (``jnp.repeat`` on the
+    head axis). The result is contiguous, as the flash kernel takes it."""
+    return t.repeat_interleave(group, dim=1)
+
+
+def _qkv_rope(x, p, cfg: LlamaConfig, cos, sin):
+    """x [B, T, D] -> (q [B,H,T,Dh], k [B,KH,T,Dh], v [B,KH,T,Dh]): RMSNorm,
+    the three projections, and q and k rotated with the position rows
+    ``cos``/``sin`` (see :func:`_apply_rope`)."""
+    B, T, _ = x.shape
+    H, KH, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
+    h = _rms_norm(x, p["attn_norm"], cfg.rms_eps)
+
+    def heads(w, n):
+        return (h @ p[w].to(cfg.dtype)).reshape(B, T, n, Dh).transpose(1, 2)
+
+    return (
+        _apply_rope(heads("wq", H), cos, sin),
+        _apply_rope(heads("wk", KH), cos, sin),
+        heads("wv", KH),
+    )
+
+
+def _attn_sublayer(x, p, cfg: LlamaConfig, cos, sin):
+    B, S, D = x.shape
+    q, k, v = _qkv_rope(x, p, cfg, cos, sin)
+    group = cfg.n_head // cfg.n_kv_head
+    attn = causal_attention(q, expand_kv(k, group), expand_kv(v, group), impl=cfg.attn_impl)
+    attn = attn.transpose(1, 2).reshape(B, S, D)
+    return x + attn @ p["wo"].to(cfg.dtype)
+
+
+def _mlp_sublayer(x, p, cfg: LlamaConfig):
+    h = _rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+    gate = h @ p["w_gate"].to(cfg.dtype)
+    up = h @ p["w_up"].to(cfg.dtype)
+    return x + (F.silu(gate) * up) @ p["w_down"].to(cfg.dtype)
+
+
+def hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
+    """tokens [B, S] int -> final-RMSNorm hidden states [B, S, d_model].
+
+    Each block runs as it is (no rematerialisation: Llama training is not
+    ported yet). ``mesh`` is the reference's: an ``sp`` or ``pp`` axis
+    selects ring attention or the pipeline there. Neither is ported, so any
+    mesh raises."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "sharded Llama (ring attention over sp, pipeline over pp) is not ported yet"
+        )
+    S = tokens.shape[1]
+    x = params["wte"].to(cfg.dtype)[tokens]
+    cos, sin = rope_tables(cfg, S, tokens.device)
+    for i in range(cfg.n_layer):
+        p = layer_params(params, i)
+        x = _mlp_sublayer(_attn_sublayer(x, p, cfg, cos, sin), p, cfg)
+    return _rms_norm(x, params["final_norm"], cfg.rms_eps)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
+    """tokens [B, S] int -> logits [B, S, vocab] (activation dtype)."""
+    return hidden(params, tokens, cfg, mesh) @ params["lm_head"].to(cfg.dtype)
+
+
+def num_params(cfg: LlamaConfig) -> int:
+    D, F_, V, L = cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.n_layer
+    KD = cfg.kv_dim
+    per_layer = 2 * D + D * D + 2 * D * KD + D * D + 3 * D * F_
+    return V * D + L * per_layer + D + D * V

@@ -71,6 +71,29 @@ def test_kernel_matches_plain_version(card, B, S):
     assert torch.equal(out, o)
 
 
+@pytest.mark.parametrize("S", [100, 1024])
+def test_kernel_takes_llama_gqa_layout(card, S):
+    """Llama's dense prefill hands the kernel a contiguous q (out of RoPE's
+    concatenation) and K/V expanded from 4 KV heads by repeat_interleave;
+    the kernel takes them as they are and agrees with its plain version.
+    Llama-125M's head_dim is 64, the kernel's."""
+    g = torch.Generator(device=card).manual_seed(S)
+    q = torch.randn((1, 12, S, 64), generator=g, device=card).to(torch.bfloat16)
+    k, v = (
+        torch.randn((1, 4, S, 64), generator=g, device=card).to(torch.bfloat16)
+        .repeat_interleave(3, dim=1)
+        for _ in range(2)
+    )
+    assert all(attention._kernel_layout_ok(t) for t in (q, k, v))
+    before = attention.flash_fwd_launches
+    o, lse = attention.flash_attention_fwd(q, k, v, 0.125)
+    torch.cuda.synchronize()
+    assert attention.flash_fwd_launches == before + 1
+    o_ref, lse_ref = attention.flash_attention_fwd_reference(q, k, v, 0.125)
+    assert (o.float() - o_ref.float()).abs().max().item() <= O_TOL
+    assert (lse - lse_ref).abs().max().item() <= LSE_TOL
+
+
 def test_kernel_refuses_what_it_cannot_take(card):
     q, k, v = _qkv_views(64, card)
     with pytest.raises(TypeError, match="bfloat16"):
