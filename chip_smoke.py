@@ -39,7 +39,22 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    against the plain attention, 3 warm-up and 10 timed steps with the
    launch counts zeroed just before the timed steps and read just after,
    one step at ``loss_chunk=128`` against ``loss_chunk=0``, and one
-   profiled step.
+   profiled step (``train``).
+7. The same for Llama-125M (``train_llama``): ``LlamaConfig.llama_125m()``
+   with its defaults ``remat="mlp"`` and ``loss_chunk=128`` (checked
+   against ``loss_chunk=0``); the kernels run on K/V repeated from 4 KV
+   heads, 12 flash_fwd and 12 flash_bwd launches a step.
+8. Speculative decoding with a GPT-2-125M target, in the reference's own
+   spec-decoding probe shape (4 slots, 1024 positions, 3 greedy streams of
+   200 tokens after a warm-up request, k=4), on the dense cache (``spec``)
+   and the paged one (``spec_paged``). Three arms each: vanilla, a 1-layer
+   d128 draft, and the target itself as its draft (loaded from a pickle of
+   the target's weights). Each spec arm must run spec steps and give the
+   vanilla arm's streams, except where the vanilla step's f32 logits put
+   the two tokens within bf16's noise (a near tie rounded the other way
+   by the verify's wider products); the dense arms launch flash_fwd 12
+   times per target prefill plus once per draft layer per draft prefill,
+   the paged ones never.
 
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -53,10 +68,12 @@ import dataclasses
 import functools
 import json
 import math
+import pickle
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -66,7 +83,7 @@ import torch.nn.functional as F
 
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.engine import LLMEngine
-from ray_tpu_torch.models import gpt2, paged
+from ray_tpu_torch.models import common, gpt2, llama, paged
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops import _build, attention
 from ray_tpu_torch.train import spmd
@@ -100,6 +117,8 @@ HEADLINE_S = 1024
 MAX_TOKENS = 32
 TRAIN_B, TRAIN_S = 8, 1024  # bench.py's per-chip batch at max_seq
 WARMUP_STEPS, TIMED_STEPS = 3, 10
+# The reference's spec-decoding probe (tools/ray_perf.py:461-515).
+SPEC_K, SPEC_STREAMS, SPEC_TOKENS = 4, 3, 200
 KERNELS = ("flash_fwd", "flash_bwd")
 
 
@@ -585,10 +604,14 @@ def profile_engine(engine, rng) -> dict:
     return dict(prefill_1000=prefill, decode_6_active=decode)
 
 
+def model_of(cfg):
+    return llama if isinstance(cfg, LlamaConfig) else gpt2
+
+
 def loss_and_grad_norm(cfg, params, batch) -> tuple[float, float]:
-    """One forward and backward of ``loss_fn``: the loss and the global
-    gradient norm over every parameter."""
-    loss, _ = gpt2.loss_fn(params, batch, cfg)
+    """One forward and backward of the family's ``loss_fn``: the loss and
+    the global gradient norm over every parameter."""
+    loss, _ = model_of(cfg).loss_fn(params, batch, cfg)
     grads = torch.autograd.grad(loss, spmd.tree_leaves(params))
     norm = torch.stack([g.float().square().sum() for g in grads]).sum().sqrt()
     return loss.item(), norm.item()
@@ -605,41 +628,55 @@ def train_config() -> "gpt2.GPT2Config":
     return cfg
 
 
-def train_gpt2(dev, cfg) -> dict:
-    """The training path on one GPU: make_train_step over loss_fn with
-    default_optimizer, driven as bench.py drives the JAX step (batch
-    [TRAIN_B, max_seq], targets = tokens rolled by one)."""
+def llama_train_config() -> LlamaConfig:
+    """Llama-125M at full width with its defaults: remat="mlp",
+    loss_chunk=128, bf16 activations, f32 masters."""
+    cfg = LlamaConfig.llama_125m()
+    assert (cfg.n_layer, cfg.n_head, cfg.n_kv_head, cfg.d_model, cfg.d_ff, cfg.vocab_size,
+            cfg.max_seq) == (12, 12, 4, 768, 2048, 32000, TRAIN_S), cfg
+    assert cfg.remat == "mlp" and cfg.loss_chunk == 128
+    assert cfg.dtype == torch.bfloat16 and cfg.param_dtype == torch.float32
+    return cfg
+
+
+def train_path(dev, cfg) -> dict:
+    """The training path on one GPU: make_train_step over the family's
+    loss_fn with default_optimizer, driven as bench.py drives the JAX step
+    (batch [TRAIN_B, max_seq], targets = tokens rolled by one)."""
+    model = model_of(cfg)
     g = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, cfg.max_seq), generator=g, device=dev)
     batch = {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
     opt = spmd.default_optimizer(warmup_steps=2, total_steps=20)
     state = spmd.make_train_state(
-        functools.partial(gpt2.init_params, cfg=cfg, device=dev), opt,
+        functools.partial(model.init_params, cfg=cfg, device=dev), opt,
         torch.Generator(device=dev).manual_seed(0), device=dev,
     )
 
     # One step from the initial params through the kernels, through the
     # plain attention (bf16, and f32 for bf16's own noise floor), and with
-    # the chunked loss.
+    # the other loss (chunked against unchunked).
     params = state["params"]
+    other_chunk = 0 if cfg.loss_chunk else 128
+    other = f"loss_chunk_{other_chunk}"
     checks = {
         "kernel": loss_and_grad_norm(cfg, params, batch),
         "plain": loss_and_grad_norm(dataclasses.replace(cfg, attn_impl="reference"), params, batch),
         "plain_f32": loss_and_grad_norm(
             dataclasses.replace(cfg, attn_impl="reference", dtype=torch.float32), params, batch
         ),
-        "loss_chunk_128": loss_and_grad_norm(dataclasses.replace(cfg, loss_chunk=128), params, batch),
+        other: loss_and_grad_norm(dataclasses.replace(cfg, loss_chunk=other_chunk), params, batch),
     }
     (l_k, n_k), (l_p, n_p), (l_32, n_32) = checks["kernel"], checks["plain"], checks["plain_f32"]
     loss_tol = max(2 * abs(l_p - l_32), TRAIN_LOSS_TOL)
     gnorm_tol = max(2 * abs(n_p - n_32) / n_32, TRAIN_GNORM_TOL)
-    for name in ("plain", "loss_chunk_128"):
+    for name in ("plain", other):
         l_x, n_x = checks[name]
         assert abs(l_k - l_x) <= loss_tol, f"loss: kernel {l_k} vs {name} {l_x} (tol {loss_tol})"
         assert abs(n_k - n_x) / n_x <= gnorm_tol, f"grad norm: kernel {n_k} vs {name} {n_x}"
     log("train checks", json.dumps(checks))
 
-    step = spmd.make_train_step(functools.partial(gpt2.loss_fn, cfg=cfg), opt)
+    step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=cfg), opt)
     losses = []
     for _ in range(WARMUP_STEPS):
         state, metrics = step(state, batch)
@@ -658,7 +695,7 @@ def train_gpt2(dev, cfg) -> dict:
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [x.item() for x in losses]
 
-    policy = gpt2.remat_policy(cfg, tokens)
+    policy = common.remat_policy(cfg, tokens)
     per_step = {"flash_fwd": cfg.n_layer * (2 if policy in ("full", "dots") else 1),
                 "flash_bwd": cfg.n_layer}
     assert policy == "mlp", policy
@@ -667,12 +704,162 @@ def train_gpt2(dev, cfg) -> dict:
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
     assert state["step"] == WARMUP_STEPS + TIMED_STEPS
     return dict(
-        batch=list(tokens.shape), remat=policy, loss_chunk=cfg.loss_chunk, checks=checks,
+        model=type(cfg).__name__, batch=list(tokens.shape), remat=policy,
+        loss_chunk=cfg.loss_chunk, checks=checks,
         loss_tol=loss_tol, gnorm_tol=gnorm_tol, launches=launches, launches_per_step=per_step,
         timed_steps=TIMED_STEPS, seconds=seconds, ms_per_step=1e3 * seconds / TIMED_STEPS,
         tok_s=tokens.numel() * TIMED_STEPS / seconds, peak_mem_gb=peak_gb, losses=losses,
         profile_one_step=profile_window(lambda: step(state, batch), 1),
     )
+
+
+# Speculative decoding: the arms of each cache, in order. The vanilla arm
+# comes first: its streams and f32 logits are what the spec arms are held to.
+SPEC_PATHS = (("spec", dict(kv_block_size=0)), ("spec_paged", dict(num_kv_blocks=420)))
+SPEC_ARMS = ("vanilla", "draft_1layer", "self_draft")
+
+
+def spec_engine(fields: dict, arm: str, self_draft_path: str) -> LLMEngine:
+    """The probe's engine (GPT-2-125M target, random weights from seed 0)
+    for one arm: no draft, the probe's 1-layer d128 draft (2 heads, so
+    head_dim is the kernel's 64; the target's vocabulary), or the target's
+    own config with its weights from ``self_draft_path``."""
+    target = gpt2.GPT2Config.gpt2_125m()
+    drafts = {
+        "vanilla": {},
+        "draft_1layer": dict(
+            spec_decode_tokens=SPEC_K,
+            draft_model_config=gpt2.GPT2Config.tiny(
+                n_layer=1, d_model=128, n_head=2, vocab_size=target.vocab_size, max_seq=1024
+            ),
+        ),
+        "self_draft": dict(spec_decode_tokens=SPEC_K, draft_model_config=target,
+                           draft_weights_path=self_draft_path),
+    }
+    engine = LLMEngine(LLMConfig(
+        model_config=target, max_slots=4, max_seq=1024, prefill_buckets=(32, 128, 1024),
+        enable_prefix_caching=False, seed=0, **fields, **drafts[arm],
+    ))
+    assert (engine._spec is None) == (arm == "vanilla")
+    return engine
+
+
+def spec_arm(engine, record_logits: bool) -> dict:
+    """The probe's traffic: a warm-up request, then SPEC_STREAMS greedy
+    streams of SPEC_TOKENS tokens, with the launch counts zeroed just
+    before the streams and read just after. With ``record_logits`` every
+    sampled position's f32 logits are kept, by (stream, index)."""
+    logits_at: dict = {}
+    if record_logits:
+        sample = engine._sample
+
+        def recording_sample(logits, req):
+            logits_at[(req.request_id, len(req.generated))] = np.array(logits, np.float32)
+            return sample(logits, req)
+
+        engine._sample = recording_sample
+    engine.generate(["warm me"], SamplingParams(max_tokens=8))
+    logits_at.clear()
+    stats0 = dict(engine.stats)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before
+    t0 = time.perf_counter()
+    out = engine.generate([f"stream {i}" for i in range(SPEC_STREAMS)],
+                          SamplingParams(max_tokens=SPEC_TOKENS))
+    seconds = time.perf_counter() - t0
+    launches = attention.flash_fwd_launches  # read just after
+    bwd_launches = attention.flash_bwd_launches
+    delta = {k: engine.stats[k] - stats0[k] for k in engine.stats}
+    assert all(o["error"] is None for o in out)
+    # Streams by their order (request ids differ between engines).
+    streams = {f"s{i}": o["token_ids"] for i, o in enumerate(out)}
+    logits_at = {(f"s{i}", j): v for i, o in enumerate(out)
+                 for (rid, j), v in logits_at.items() if rid == o["request_id"]}
+    spec = engine._spec
+    draft_layers = spec.cfg.n_layer if spec is not None else 0
+    prompts = len(out)  # no prefix caching: every stream prefills whole
+    per_prefill = 0 if engine.paged else engine.model_config.n_layer + draft_layers
+    assert launches == per_prefill * prompts, (launches, per_prefill, prompts)
+    if spec is not None:
+        assert delta["spec_steps"] > 0, delta
+    return dict(
+        streams=streams, logits_at=logits_at,
+        tokens=delta["tokens_generated"], seconds=seconds,
+        tok_s=delta["tokens_generated"] / seconds, steps_stats=delta,
+        accept_rate=(delta["spec_accepted"] / delta["spec_drafted"]) if delta["spec_drafted"] else None,
+        launches=launches, bwd_launches=bwd_launches, launches_per_prefill=per_prefill,
+        lengths=[len(t) for t in streams.values()],
+    )
+
+
+def compare_streams(vanilla: dict, spec: dict, bound: float) -> list[dict]:
+    """The spec arm's streams against the vanilla arm's, token for token.
+    At each stream's first difference the vanilla step's f32 logits must
+    put the two tokens within ``bound`` (bf16's noise on these logits,
+    phase 4); any other difference fails."""
+    divergences = []
+    for rid, want in vanilla["streams"].items():
+        got = spec["streams"][rid]
+        i = next((i for i, (a, b) in enumerate(zip(want, got)) if a != b), None)
+        if i is None:
+            assert len(got) == len(want), f"{rid}: spec stream of {len(got)} vs {len(want)} tokens"
+            continue
+        logits = vanilla["logits_at"][(rid, i)]
+        margin = float(logits[want[i]] - logits[got[i]])
+        div = dict(stream=rid, index=i, vanilla_token=want[i], spec_token=got[i], margin=margin)
+        assert 0.0 <= margin <= bound, f"spec stream diverges past bf16 noise: {div}, bound {bound}"
+        divergences.append(div)
+    return divergences
+
+
+def spec_path(name: str, fields: dict, bound: float, tmp: str) -> dict:
+    """One cache's three arms, printed as one ``{"spec": ...}`` line."""
+    arms, self_draft_path = {}, str(Path(tmp) / "target.pkl")
+    for arm in SPEC_ARMS:
+        t_arm = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        engine = spec_engine(fields, arm, self_draft_path)
+        if arm == "vanilla":
+            # The target's weights as numpy, for the self-draft arm.
+            tree = {k: (v.cpu().numpy() if torch.is_tensor(v) else
+                        {b: w.cpu().numpy() for b, w in v.items()})
+                    for k, v in engine.params.items()}
+            with open(self_draft_path, "wb") as f:
+                pickle.dump(tree, f)
+            del tree
+        run = spec_arm(engine, record_logits=arm == "vanilla")
+        if arm != "vanilla":
+            run["divergences"] = compare_streams(arms["vanilla"], run, bound)
+            run["profile_steps"] = profile_spec_steps(engine)
+        run.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   phase_s=time.perf_counter() - t_arm)
+        arms[arm] = run
+        del engine
+        torch.cuda.empty_cache()
+    launches = sum(a["launches"] for a in arms.values())
+    bwd_launches = sum(a["bwd_launches"] for a in arms.values())
+    assert bwd_launches == 0, bwd_launches  # serving runs no backward
+    for a in arms.values():
+        del a["logits_at"], a["streams"]
+    log(name, json.dumps({k: dict(tok_s=a["tok_s"], accept_rate=a["accept_rate"])
+                          for k, a in arms.items()}))
+    return dict(path=name, paged="kv_block_size" not in fields, k=SPEC_K,
+                bf16_bound=bound, arms=arms, launches=launches, bwd_launches=bwd_launches)
+
+
+def profile_spec_steps(engine) -> dict:
+    """Device time and busy share of 4 engine steps with SPEC_STREAMS
+    greedy streams in flight (spec steps where eligible)."""
+    for i in range(SPEC_STREAMS):
+        engine.add_request(f"prof-{i}", f"profile {i}", SamplingParams(max_tokens=64))
+    engine.step()  # admissions and the draft prefills
+    steps0 = engine.stats["spec_steps"]
+    prof = profile_window(engine.step, 4)
+    prof["spec_steps"] = engine.stats["spec_steps"] - steps0
+    while engine.has_unfinished():
+        engine.step()
+    engine.pop_finished()
+    return prof
+
 
 
 def kernel_entry(name, built, rows, head, launches_by_path, replaces) -> dict:
@@ -709,7 +896,7 @@ def main() -> int:
 
     fwd_rows = check_flash_kernel(dev)
     bwd_rows = check_flash_bwd_kernel(dev)
-    serve_launches, dense_checks = {}, {}
+    serve_launches, dense_checks, bf16_bound = {}, {}, None
     for name, fields, per_layer in SERVE_PATHS:
         t_phase = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -724,6 +911,8 @@ def main() -> int:
         )
         if not engine.paged:
             dense_checks[family] = keep
+        if name == "serve":
+            bf16_bound = logits["tol"]  # GPT-2's bf16 noise on first-token logits
         prof = profile_engine(engine, np.random.default_rng(1))
         print(json.dumps({"serve": {"path": name, "model": family, "paged": engine.paged,
                                     "engine": run, "first_token_logits": logits,
@@ -733,8 +922,19 @@ def main() -> int:
         torch.cuda.empty_cache()
     del dense_checks
 
-    train = train_gpt2(dev, train_config())
+    train = train_path(dev, train_config())
     print(json.dumps({"train": train}), flush=True)
+    torch.cuda.empty_cache()
+    train_llama = train_path(dev, llama_train_config())
+    print(json.dumps({"train": train_llama}), flush=True)
+    torch.cuda.empty_cache()
+
+    spec_launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fields in SPEC_PATHS:
+            spec = spec_path(name, fields, bf16_bound, tmp)
+            spec_launches[name] = (spec["launches"], spec["bwd_launches"])
+            print(json.dumps({"spec": spec}), flush=True)
 
     fwd_head = next(
         r for r in fwd_rows if (r["layout"], r["B"], r["S"]) == ("qkv_views", 1, HEADLINE_S)
@@ -742,12 +942,16 @@ def main() -> int:
     bwd_head = next(r for r in bwd_rows if (r["B"], r["S"]) == (TRAIN_B, TRAIN_S))
     fwd = kernel_entry("flash_fwd", built, fwd_rows, fwd_head,
                        {**{k: f for k, (f, _) in serve_launches.items()},
-                        "train": train["launches"]["flash_fwd"]},
+                        "train": train["launches"]["flash_fwd"],
+                        "train_llama": train_llama["launches"]["flash_fwd"],
+                        **{k: f for k, (f, _) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
     bwd = kernel_entry("flash_bwd", built, bwd_rows, bwd_head,
                        {**{k: b for k, (_, b) in serve_launches.items()},
-                        "train": train["launches"]["flash_bwd"]},
+                        "train": train["launches"]["flash_bwd"],
+                        "train_llama": train_llama["launches"]["flash_bwd"],
+                        **{k: b for k, (_, b) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)

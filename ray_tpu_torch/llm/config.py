@@ -4,10 +4,10 @@ The config holds only the fields the port's engine reads: the model (a
 ``GPT2Config`` or a ``LlamaConfig``), the serving shape, the KV cache (the
 paged pool by default, as in the reference: ``kv_block_size=16`` and
 ``num_kv_blocks``; 0 selects the dense per-slot cache), weights, prefix
-caching and chunked prefill. Two fields name later work and make the
-engine raise ``NotImplementedError`` when set: ``spec_decode_tokens > 0``
-and ``tensor_parallelism > 1``. The reference's model id, replica
-placement and draft model fields arrive with the code that reads them.
+caching, chunked prefill and speculative decoding (``spec_decode_tokens``
+with a draft model). ``tensor_parallelism > 1`` names later work and makes
+the engine raise ``NotImplementedError``. The reference's model id and
+replica placement arrive with the code that reads them.
 """
 
 from __future__ import annotations
@@ -54,8 +54,17 @@ class LLMConfig:
     # tokens prefill in chunks of this size, one chunk per engine step.
     # 0 = disabled.
     prefill_chunk_tokens: int = 0
-    # Speculative decoding: draft tokens per step (0 = off; not ported yet).
+    # Speculative decoding: a draft model proposes up to this many greedy
+    # tokens per engine step and the target verifies them in one
+    # multi-token forward; greedy outputs equal vanilla decode's. 0 = off.
     spec_decode_tokens: int = 0
+    # The draft: a model config (GPT2Config or LlamaConfig) whose vocab
+    # equals the target's; required when spec_decode_tokens > 0. In paged
+    # mode its KV is a pool parallel to the target's, on the same block ids.
+    draft_model_config: Any = None
+    # Draft weights: a path to a pickled params pytree of numpy arrays (as
+    # weights_path), or None for random init from ``seed``.
+    draft_weights_path: Optional[str] = None
 
     def build_model_config(self):
         from ray_tpu_torch.models.gpt2 import GPT2Config

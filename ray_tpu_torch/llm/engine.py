@@ -24,15 +24,22 @@ families).
 - **Prefix caching** and **chunked prefill** behave as the reference's do,
   with the same bucket guards: every padded write is checked to fit inside
   ``max_seq`` before it is issued.
+- **Speculative decoding** (``spec_decode_tokens > 0`` with a
+  ``draft_model_config``): a step in which every active slot is greedy,
+  has draft KV and sits ``k`` rows clear of ``max_seq`` runs the draft's
+  ``k`` proposals and the target's one verify pass
+  (:class:`~ray_tpu_torch.llm.spec_decode.SpecDecoder`); any other step is
+  the vanilla one, with the same greedy tokens.
 
 Host state (positions, last tokens, slot table, block tables) lives in
-numpy. Each step reads the device back once, for the decode logits;
-admission reads back the last-logits of a prompt to sample its first
-token, as the reference does.
+numpy. Each step reads the device back once, for the decode logits (a
+spec step: for the proposals and the verify argmax); admission reads back
+the last-logits of a prompt to sample its first token, as the reference
+does.
 
-Not ported yet (they raise ``NotImplementedError``): speculative decoding,
-tensor parallelism and the disaggregated prefill/decode handoff. The
-reference's metrics and flight recorder telemetry are not ported either.
+Not ported yet (they raise ``NotImplementedError``): tensor parallelism
+and the disaggregated prefill/decode handoff. The reference's metrics and
+flight recorder telemetry are not ported either.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch
 
 from ray_tpu_torch.llm.block_manager import BlockManager
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
+from ray_tpu_torch.llm.spec_decode import SpecDecoder
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer
 from ray_tpu_torch.models import convert, gpt2, gpt2_decode, llama, llama_decode, paged
 from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
@@ -95,6 +103,9 @@ class _Request:
     # Admission failure surfaced through pop_finished (a reservation no
     # pool state can satisfy fails the request, not the engine loop).
     error: Optional[str] = None
+    # Speculative decoding: the draft model prefilled this request's
+    # prompt, so the slot may join spec steps.
+    spec_ready: bool = False
     # Admission wall-clock, for the rolling TTFT window.
     t_admit: float = 0.0
 
@@ -109,8 +120,6 @@ class LLMEngine:
     ):
         """``device`` is the card unless the caller asks for ``"cpu"``; a
         CUDA request with no GPU raises."""
-        if config.spec_decode_tokens > 0:
-            raise NotImplementedError("speculative decoding is not ported yet")
         if config.tensor_parallelism > 1:
             raise NotImplementedError("tensor parallelism is not ported yet")
         self.device = resolve_device(device)
@@ -182,6 +191,10 @@ class LLMEngine:
             "prefix_lookups": 0,
             "prefix_tokens_reused": 0,
             "tokens_generated": 0,
+            # Speculative decoding (llm/spec_decode.py):
+            "spec_steps": 0,
+            "spec_drafted": 0,
+            "spec_accepted": 0,
         }
         # Host-side slot state (numpy: mutated per step)
         self.positions = np.zeros(B, np.int32)  # next write position
@@ -196,6 +209,9 @@ class LLMEngine:
         # overload signal; samples expire by age as well as by count.
         self._ttft_window: deque = deque(maxlen=64)
         self.TTFT_WINDOW_S = 30.0
+        self._spec = None
+        if config.spec_decode_tokens > 0:
+            self._spec = SpecDecoder(self, config.draft_model_config, config.spec_decode_tokens)
 
     # -- device helpers --------------------------------------------------------
     def _h2d(self, arr) -> torch.Tensor:
@@ -430,6 +446,8 @@ class LLMEngine:
             self._first_token(req, tok)
             self.positions[slot] = T
             self.last_tokens[slot] = tok
+            if self._spec is not None:
+                req.spec_ready = self._spec.prefill_draft(req)
             self._maybe_finish(req)
             if req.finished:
                 admit_finished.append(req)
@@ -651,6 +669,8 @@ class LLMEngine:
         self._first_token(req, tok)
         self.positions[req.slot] = T
         self.last_tokens[req.slot] = tok
+        if self._spec is not None:
+            req.spec_ready = self._spec.prefill_draft(req)
         self._maybe_finish(req)
         return [req] if req.finished else []
 
@@ -699,7 +719,9 @@ class LLMEngine:
         finished = self._advance_prefills()
         finished += self._admit_waiting()
         active = [r for r in self._slot_req if r is not None and not r.prefilling]
-        if active:
+        if active and self._spec is not None and self._spec_eligible(active):
+            finished += self._spec.step(active)
+        elif active:
             # Prefilling slots decode too, as in the reference: their write
             # lands at positions[slot] == pf_next, in their own block or
             # row, where the next chunk overwrites it.
@@ -735,6 +757,24 @@ class LLMEngine:
                     finished.append(req)
         self._steps += 1
         return finished
+
+    def _spec_eligible(self, active: list) -> bool:
+        """A spec step may run only when every active slot is greedy with
+        draft KV, and every occupied slot (prefilling ones too: the verify
+        writes k+1 garbage rows at their cursor, as the vanilla decode
+        writes one) sits k rows clear of max_seq, which keeps every verify
+        write inside the table. All or nothing: the verify is one batch;
+        an ineligible step runs the vanilla one."""
+        k = self._spec.k
+        lim = self.config.max_seq - 1
+        for r in self._slot_req:
+            if r is None:
+                continue
+            if self.positions[r.slot] + k > lim:
+                return False
+            if not r.prefilling and not (r.spec_ready and r.temperature <= 0.0):
+                return False
+        return True
 
     # Advertisement cap: the pool's token budget already bounds the digest
     # count, but a tiny chunk against a big budget must not grow it unboundedly.

@@ -24,14 +24,15 @@ from typing import Any
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import (
-    CheckpointPolicy,
-    checkpoint,
-    create_selective_checkpoint_contexts,
-)
 
-from ray_tpu_torch.models.common import chunked_lm_loss
-from ray_tpu_torch.ops.attention import causal_attention, uses_flash_kernel
+from ray_tpu_torch.models.common import (
+    lm_loss,
+    remat_block,
+    remat_policy,
+    split_batch,
+    unbind_layers,
+)
+from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.util.device import resolve_device
 
 Params = dict
@@ -218,60 +219,14 @@ def _mlp_sublayer(x, p, cfg: GPT2Config):
     return x + h @ p["fc2_w"].to(cfg.dtype) + p["fc2_b"].to(cfg.dtype)
 
 
-def _block(x, p, cfg: GPT2Config):
-    """One transformer block. x: [B, S, D]; p: one layer's params."""
-    return _mlp_sublayer(_attn_sublayer(x, p, cfg), p, cfg)
-
-
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
-
-
-def _dots_policy(ctx, op, *args, **kwargs):
-    """Save the outputs of the weight matmuls (unbatched ``mm``/``addmm``)
-    and recompute everything else, attention's batched products included:
-    the counterpart of ``dots_with_no_batch_dims_saveable``."""
-    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
-
-
-def _dots_context():
-    return create_selective_checkpoint_contexts(_dots_policy)
-
-
-def remat_policy(cfg: GPT2Config, x: torch.Tensor) -> str:
-    """The policy :func:`hidden` applies to activations like ``x``:
-    ``cfg.remat`` with bools resolved, and "mlp" turned into "dots" where
-    attention does not run the flash kernel (the plain path has no saved
-    residuals to keep, and would hold the S x S probabilities of every
-    layer), as at ``ray_tpu/models/gpt2.py:339-352``."""
-    remat = {True: "full", False: "none"}.get(cfg.remat, cfg.remat)
-    if remat not in ("full", "dots", "mlp", "none"):
-        raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    if remat == "mlp" and not uses_flash_kernel(x, impl=cfg.attn_impl):
-        remat = "dots"
-    return remat
-
-
-def _remat_block(x, p, cfg: GPT2Config, remat: str):
-    ckpt = functools.partial(checkpoint, use_reentrant=False)
-    if remat == "full":
-        return ckpt(_block, x, p, cfg)
-    if remat == "dots":
-        return ckpt(_block, x, p, cfg, context_fn=_dots_context)
-    if remat == "mlp":
-        # Attention stays outside the checkpoint, so the flash Function's
-        # saved (q, k, v, o, lse) survive to backward and the forward
-        # kernel never re-runs there.
-        return ckpt(_mlp_sublayer, _attn_sublayer(x, p, cfg), p, cfg, context_fn=_dots_context)
-    return _block(x, p, cfg)
-
-
 def hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh=None) -> torch.Tensor:
     """tokens [B, S] int -> final-LN hidden states [B, S, d_model].
 
     With grad enabled each block runs under ``cfg.remat``
-    (:func:`remat_policy`); without it, as it is. ``mesh`` is the
-    reference's: a mesh with an ``sp`` or ``pp`` axis selects ring attention
-    or the GPipe pipeline there. Neither is ported, so any mesh raises."""
+    (:func:`~ray_tpu_torch.models.common.remat_policy`); without it, as it
+    is. ``mesh`` is the reference's: a mesh with an ``sp`` or ``pp`` axis
+    selects ring attention or the GPipe pipeline there. Neither is ported,
+    so any mesh raises."""
     _check_supported(cfg)
     if mesh is not None:
         raise NotImplementedError(
@@ -283,11 +238,10 @@ def hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh=None) -> 
     remat = remat_policy(cfg, x)  # raises on an unknown policy, as the reference does
     if not torch.is_grad_enabled():
         remat = "none"  # nothing to save for a backward: run each block as it is
-    # One unbind per stacked leaf: its backward is one stack, where indexing
-    # layer by layer would allocate a full-size zero gradient per layer.
-    layers = {k: v.unbind(0) for k, v in params["blocks"].items()}
-    for i in range(cfg.n_layer):
-        x = _remat_block(x, {k: v[i] for k, v in layers.items()}, cfg, remat)
+    attn = functools.partial(_attn_sublayer, cfg=cfg)
+    mlp = functools.partial(_mlp_sublayer, cfg=cfg)
+    for p in unbind_layers(params):
+        x = remat_block(attn, mlp, x, p, remat)
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
 
 
@@ -305,23 +259,9 @@ def loss_fn(params: Params, batch: dict, cfg: GPT2Config, mesh=None) -> tuple[to
     f32 logits from bf16 operands. Otherwise the logits are one product in
     the activation dtype, upcast to f32 (``ray_tpu/models/gpt2.py:432-439``).
     The metrics stay on the device."""
-    tokens = batch["tokens"]
-    if "targets" in batch:
-        inputs, targets = tokens, batch["targets"]
-    else:
-        inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    targets = targets.long()
+    inputs, targets = split_batch(batch)
     x = hidden(params, inputs, cfg, mesh)
-    head = params["wte"].to(cfg.dtype)
-    if cfg.loss_chunk and inputs.shape[1] > cfg.loss_chunk:
-        ce = chunked_lm_loss(x, head, targets, cfg.loss_chunk) / targets.numel()
-    else:
-        logits = (x @ head.T).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets[..., None])[..., 0]
-        ce = (lse - tgt).mean()
-    tokens_n = torch.full((), targets.numel(), dtype=torch.int32, device=ce.device)
-    return ce, {"loss": ce.detach(), "tokens": tokens_n}
+    return lm_loss(x, params["wte"].to(cfg.dtype), targets, cfg.loss_chunk)
 
 
 def num_params(cfg: GPT2Config) -> int:

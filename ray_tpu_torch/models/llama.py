@@ -1,5 +1,6 @@
 """Llama-family decoder in PyTorch: RMSNorm, RoPE, GQA, SwiGLU. Port of
-``ray_tpu/models/llama.py`` (inference: ``hidden``, ``forward``).
+``ray_tpu/models/llama.py`` (``hidden`` with the remat ladder, ``forward``,
+``loss_fn``).
 
 Parameters are a plain dict with the reference's stacked layout (every
 per-layer leaf under ``params["blocks"]`` with a leading ``[L, ...]`` dim),
@@ -11,10 +12,12 @@ matmul weight is cast to the activation dtype where the reference casts it.
 Differences from GPT-2, as in the reference: RMSNorm (no mean-centring, no
 bias), rotary position embeddings (no learned position table), SwiGLU MLP,
 no biases, an untied output head, and grouped-query attention: each KV head
-is repeated for its group of query heads before the attention kernel.
+is repeated for its group of query heads before the attention kernel (in
+training, autograd sums the expanded K/V's gradients over each group).
 
-Not ported yet: ``loss_fn`` and the remat ladder (training), and the
-sp/pp meshes (ring attention, the pipeline), which raise.
+Training runs the remat policies and the next-token loss that GPT-2 runs
+(:mod:`ray_tpu_torch.models.common`). Not ported yet: the sp/pp meshes
+(ring attention, the pipeline), which raise.
 """
 
 from __future__ import annotations
@@ -25,6 +28,13 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch.models.common import (
+    lm_loss,
+    remat_block,
+    remat_policy,
+    split_batch,
+    unbind_layers,
+)
 from ray_tpu_torch.models.gpt2 import layer_params  # the same stacked layout
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.util.device import resolve_device
@@ -46,6 +56,13 @@ class LlamaConfig:
     param_dtype: Any = torch.float32
     attn_impl: str = "auto"  # "auto" | "cuda" | "reference"
     rms_eps: float = 1e-5
+    # Rematerialization in training, as GPT2Config.remat: "full", "dots",
+    # "mlp" (attention outside the checkpoint; "dots" where the flash
+    # kernel is not in use) or "none".
+    remat: str = "mlp"
+    # LM-head loss: sequence positions per chunk of the rematerialized
+    # logits (0: one unchunked product).
+    loss_chunk: int = 128
 
     @property
     def head_dim(self) -> int:
@@ -210,10 +227,11 @@ def _mlp_sublayer(x, p, cfg: LlamaConfig):
 def hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """tokens [B, S] int -> final-RMSNorm hidden states [B, S, d_model].
 
-    Each block runs as it is (no rematerialisation: Llama training is not
-    ported yet). ``mesh`` is the reference's: an ``sp`` or ``pp`` axis
-    selects ring attention or the pipeline there. Neither is ported, so any
-    mesh raises."""
+    With grad enabled each block runs under ``cfg.remat``
+    (:func:`~ray_tpu_torch.models.common.remat_policy`); without it, as it
+    is. ``mesh`` is the reference's: an ``sp`` or ``pp`` axis selects ring
+    attention or the pipeline there. Neither is ported, so any mesh
+    raises."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded Llama (ring attention over sp, pipeline over pp) is not ported yet"
@@ -221,15 +239,34 @@ def hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) ->
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens]
     cos, sin = rope_tables(cfg, S, tokens.device)
-    for i in range(cfg.n_layer):
-        p = layer_params(params, i)
-        x = _mlp_sublayer(_attn_sublayer(x, p, cfg, cos, sin), p, cfg)
+    remat = remat_policy(cfg, x)  # raises on an unknown policy, as the reference does
+    if not torch.is_grad_enabled():
+        remat = "none"  # nothing to save for a backward: run each block as it is
+
+    def attn(x, p):
+        return _attn_sublayer(x, p, cfg, cos, sin)
+
+    def mlp(x, p):
+        return _mlp_sublayer(x, p, cfg)
+
+    for p in unbind_layers(params):
+        x = remat_block(attn, mlp, x, p, remat)
     return _rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, vocab] (activation dtype)."""
     return hidden(params, tokens, cfg, mesh) @ params["lm_head"].to(cfg.dtype)
+
+
+def loss_fn(params: Params, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, dict]:
+    """Next-token cross-entropy: ``(loss, {"loss", "tokens"})``, with the
+    batch contract of :func:`ray_tpu_torch.models.gpt2.loss_fn`. The
+    untied head ``lm_head [D, V]`` goes to the loss transposed, as at
+    ``ray_tpu/models/llama.py:298-301``."""
+    inputs, targets = split_batch(batch)
+    x = hidden(params, inputs, cfg, mesh)
+    return lm_loss(x, params["lm_head"].to(cfg.dtype).T, targets, cfg.loss_chunk)
 
 
 def num_params(cfg: LlamaConfig) -> int:

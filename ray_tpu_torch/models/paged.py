@@ -1,6 +1,6 @@
 """Paged (block-table) KV cache for both model families. Port of
-``ray_tpu/models/paged.py`` (``paged_prefill`` and ``paged_decode``;
-``paged_verify`` comes with speculative decoding).
+``ray_tpu/models/paged.py`` (``paged_prefill``, ``paged_decode`` and
+``paged_verify``, the multi-token forward of speculative decoding).
 
 - **The pool** is ``{"k","v": [L, N_blocks, KH, block, Dh]}`` tensors. A
   request owns a *block table*, ``[W]`` physical block ids with ``W =
@@ -20,9 +20,10 @@
   (host-side refcount), with no device copy.
 
 Index semantics differ from JAX's, where a gather clamps an out-of-range
-index and a scatter drops it. Here a prefill whose rows reach past the
-table raises ``ValueError`` before anything is written; the engine's
-bucket guards keep every served write inside the table.
+index and a scatter drops it. Here a prefill or a verify whose rows reach
+past the table raises ``ValueError`` before anything is written; the
+engine's bucket guards and its spec-step guard keep every served write
+inside the table.
 
 Family dispatch (GPT-2: learned positions, multi-head; Llama: RoPE, GQA)
 is a small hook table built by :func:`_family`, once per engine; the rest
@@ -174,6 +175,67 @@ def paged_prefill(
         attn = torch.einsum("kgts,ksd->kgtd", pa, vd).reshape(1, H, T, Dh)
         x = finish(x, attn, p)
     return pool, final(params, x[0, length - 1])
+
+
+def paged_verify(
+    params: Params,
+    tokens: torch.Tensor,  # [B, T] int: token t of row b sits at position
+    #                        positions[b] + t
+    positions: torch.Tensor,  # [B] int, on the host: first write position per slot
+    tables: torch.Tensor,  # [B, W] int: per-slot block tables
+    pool,
+    cfg,
+    *,
+    block_size: int,
+    hooks: Hooks | None = None,
+):
+    """Score T consecutive tokens per slot in one forward, the target's
+    verification pass in speculative decoding (:func:`paged_decode` is the
+    T=1 case). Their K/V are written into the pool in place; returns
+    (pool, logits [B, T, vocab] f32), logits[b, t] being the next-token
+    distribution after tokens[b, t].
+
+    ``positions`` is read on the host: rows that would reach past the table
+    (``positions + T > W * block``) raise ``ValueError`` before anything is
+    written, where the reference's scatter would clamp them into the slot's
+    last block. The gather is :func:`paged_decode`'s one-index row gather."""
+    B, T = tokens.shape
+    W = tables.shape[1]
+    S = W * block_size
+    if positions.shape != (B,) or int(positions.min()) < 0 or int(positions.max()) + T > S:
+        raise ValueError(
+            f"paged verify of {T} rows at positions {positions.tolist()} does not fit "
+            f"a table of {W} blocks of {block_size}"
+        )
+    embed, qkv, finish, final, H, KH, Dh = hooks or _family(cfg, S, tokens.device)
+    group = H // KH
+    dev = tokens.device
+
+    # Host to device without a stream sync (the caller pins a CUDA run's copy).
+    pos2d = positions.to(dev, non_blocking=True).long()[:, None] + torch.arange(T, device=dev)
+    x = embed(params, tokens, pos2d)  # [B, T, D]
+    rows = torch.arange(B, device=dev)[:, None]
+    bids = tables[rows, pos2d // block_size][:, :, None]  # [B, T, 1]
+    offs = (pos2d % block_size)[:, :, None]
+    khi = torch.arange(KH, device=dev)
+    gather = tables[:, None, :] * KH + khi[None, :, None]  # [B, KH, W] rows, as in paged_decode
+    mask = torch.arange(S, device=dev)[None, None, :] <= pos2d[:, :, None]  # [B, T, S]
+    scale = 1.0 / (Dh**0.5)
+    for i in range(cfg.n_layer):
+        p = gpt2.layer_params(params, i)
+        pk, pv = pool["k"][i], pool["v"][i]  # [N, KH, block, Dh] views
+        q, k, v = qkv(x, p, pos2d)  # q [B,H,T,Dh], k/v [B,KH,T,Dh]
+        pk[bids, khi[None, None, :], offs] = k.transpose(1, 2)  # [B, T, KH, Dh]
+        pv[bids, khi[None, None, :], offs] = v.transpose(1, 2)
+        kd = pk.view(-1, block_size * Dh)[gather].view(B, KH, S, Dh)
+        vd = pv.view(-1, block_size * Dh)[gather].view(B, KH, S, Dh)
+        qg = q.reshape(B, KH, group, T, Dh)
+        s = torch.einsum("bkgtd,bksd->bkgts", qg, kd).float() * scale
+        s = torch.where(mask[:, None, None], s, -1e30)
+        pa = torch.softmax(s, dim=-1).to(vd.dtype)
+        attn = torch.einsum("bkgts,bksd->bkgtd", pa, vd).reshape(B, H, T, Dh)
+        x = finish(x, attn, p)
+    return pool, final(params, x.reshape(B * T, -1)).reshape(B, T, -1)
 
 
 def paged_decode(

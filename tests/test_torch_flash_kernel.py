@@ -12,7 +12,7 @@ import dataclasses
 import pytest
 import torch
 
-from ray_tpu_torch.models import gpt2
+from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.ops import attention
 from ray_tpu_torch.train.spmd import tree_leaves
 
@@ -178,13 +178,19 @@ def test_autograd_runs_both_kernels(card):
     assert all(bool(torch.isfinite(t.grad.float()).all()) for t in leaves)
 
 
-def test_remat_policies_on_the_card(card):
-    """A tiny GPT-2 (head_dim 64) trained on the card: each remat policy
-    gives the same gradients, and the kernels launch once a layer under
-    "none" and "mlp", the forward twice under "dots" and "full" (the
-    checkpoint re-runs it in backward)."""
-    base = gpt2.GPT2Config.tiny(n_layer=2, d_model=128, n_head=2, vocab_size=512, max_seq=128)
-    params = gpt2.init_params(torch.Generator(device=card).manual_seed(0), base, device=card)
+@pytest.mark.parametrize("family", ["gpt2", "llama"])
+def test_remat_policies_on_the_card(card, family):
+    """A tiny GPT-2 or Llama (head_dim 64; Llama's K/V repeated from 1 KV
+    head) trained on the card: each remat policy gives the same gradients,
+    and the kernels launch once a layer under "none" and "mlp", the forward
+    twice under "dots" and "full" (the checkpoint re-runs it in backward)."""
+    model = gpt2 if family == "gpt2" else llama
+    shape = dict(n_layer=2, d_model=128, n_head=2, vocab_size=512, max_seq=128)
+    if family == "llama":
+        shape["n_kv_head"] = 1
+    config = gpt2.GPT2Config if family == "gpt2" else llama.LlamaConfig
+    base = config.tiny(**shape)
+    params = model.init_params(torch.Generator(device=card).manual_seed(0), base, device=card)
     leaves = [t.requires_grad_() for t in tree_leaves(params)]
     g = torch.Generator(device=card).manual_seed(1)
     batch = {"tokens": torch.randint(0, 512, (2, 129), generator=g, device=card)}
@@ -192,7 +198,7 @@ def test_remat_policies_on_the_card(card):
     for remat, fwd_per_layer in (("none", 1), ("mlp", 1), ("dots", 2), ("full", 2)):
         cfg = dataclasses.replace(base, remat=remat, loss_chunk=0)
         before = (attention.flash_fwd_launches, attention.flash_bwd_launches)
-        loss, _ = gpt2.loss_fn(params, batch, cfg)
+        loss, _ = model.loss_fn(params, batch, cfg)
         grads[remat] = torch.autograd.grad(loss, leaves)
         launched = (attention.flash_fwd_launches - before[0], attention.flash_bwd_launches - before[1])
         assert launched == (fwd_per_layer * base.n_layer, base.n_layer), remat

@@ -136,15 +136,30 @@ def test_sampled_request_finishes_in_vocab(weights):
     assert all(0 <= t < SHAPE["vocab_size"] for t in out["token_ids"])
 
 
+@pytest.mark.parametrize("kv_block_size", [0, 16], ids=["dense", "paged"])
+def test_sampled_streams_equal_jax(weights, kv_block_size):
+    """Temperature 0.8 with the engines' shared seed: both sample from the
+    same f32 logits with the same numpy rng draws, so the streams are
+    equal token for token (a prefix hit and more requests than slots
+    included)."""
+    j, p = _engines(weights, kv_block_size=kv_block_size)
+    prompts = _prompts()
+    jout = j.generate(prompts, JSampling(max_tokens=8, temperature=0.8))
+    pout = p.generate(prompts, PSampling(max_tokens=8, temperature=0.8))
+    assert [o["token_ids"] for o in pout] == [o["token_ids"] for o in jout]
+    assert {k: p.stats[k] for k in COUNTERS} == {k: j.stats[k] for k in COUNTERS}
+    assert p.stats["prefix_hits"] >= 1
+    greedy = p.generate(prompts, PSampling(max_tokens=8))
+    assert [o["token_ids"] for o in greedy] != [o["token_ids"] for o in pout]  # it did sample
+
+
 def test_unported_paths_raise(weights):
-    """Spec decode, tensor parallelism, prefill_only and disaggregated
-    handoffs still raise, and so does the card's absence; the paged cache
-    (the default, ``kv_block_size=16``) builds."""
+    """Tensor parallelism, prefill_only and disaggregated handoffs still
+    raise, and so does the card's absence; the paged cache (the default,
+    ``kv_block_size=16``) builds."""
     _, pcfg, _ = weights
-    for kw in ({"spec_decode_tokens": 2}, {"tensor_parallelism": 2}):
-        cfg = PLLMConfig(model_config=pcfg, **{**SERVE, **kw})
-        with pytest.raises(NotImplementedError):
-            PEngine(cfg, device="cpu")
+    with pytest.raises(NotImplementedError):
+        PEngine(PLLMConfig(model_config=pcfg, **{**SERVE, "tensor_parallelism": 2}), device="cpu")
     assert PLLMConfig().kv_block_size == 16 and PLLMConfig().num_kv_blocks is None
     eng = PEngine(PLLMConfig(model_config=pcfg, **{**SERVE, "kv_block_size": 16}), device="cpu")
     # 3 slots x 16 blocks of a 256-row table, halved, plus the scratch block.
