@@ -15,36 +15,56 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    PyTorch library call that computes the same function.
 3. Serve through the port's ``LLMEngine`` at the reference engine's
    default shape (16 slots, 2048 positions), four paths in turn, each at
-   full width with random weights from a seed: GPT-2-125M on the dense KV
-   cache (``serve``), GPT-2-125M on the paged cache, the default
-   (``serve_paged``), Llama-125M on the dense cache (``serve_llama``) and
-   on the paged cache (``serve_llama_paged``). Each gets 6 requests of ~20
-   to ~1000 prompt tokens, two of them sharing a 64-token prefix; the
-   kernels' launch counts are zeroed just before each path and read just
-   after it. Dense paths launch flash_fwd 12 times per fresh prefill; the
-   paged paths run no kernel (0 launches), as the reference's paged
-   prefill and decode run no Pallas kernel. On the paged paths the shared
-   prefix runs on shared blocks (refcount >= 2), and after the run only
-   the prefix pool's blocks stay in use.
-4. Check each path's first-token logits of one prompt: a dense path's
+   full width with random weights from a seed and telemetry on (the
+   reference's default): GPT-2-125M on the dense KV cache (``serve``),
+   GPT-2-125M on the paged cache, the default (``serve_paged``), Llama-125M
+   on the dense cache (``serve_llama``) and on the paged cache
+   (``serve_llama_paged``). Each gets 6 requests of ~20 to ~1000 prompt
+   tokens, two of them sharing a 64-token prefix; the kernels' launch
+   counts are zeroed just before each path and read just after it. Dense
+   paths launch flash_fwd 12 times per fresh prefill; the paged paths run
+   no kernel (0 launches), as the reference's paged prefill and decode run
+   no Pallas kernel. On the paged paths the shared prefix runs on shared
+   blocks (refcount >= 2), and after the run only the prefix pool's blocks
+   stay in use.
+4. Check each path's telemetry over that run: the registry's snapshot
+   delta (request, prompt-token, generated-token and prefill-chunk
+   counters; TTFT and ITL observation counts; KV-utilization and
+   prefix-hit-rate gauges) and the flight recorder's ``llm`` ring
+   (``llm.first_token``, ``llm.prefill``, ``llm.prefill_chunk`` and
+   ``llm.decode_step`` events, their tokens and reused prefixes) against
+   what the engine did, counted on the host step by step; the path's line
+   carries them under ``"telemetry"``, with the TTFT and ITL summaries.
+5. Check each path's first-token logits of one prompt: a dense path's
    (the kernel) against the plain attention within bf16's own noise, a
    paged path's against its family's dense plain-attention logits for
    exact equality.
-5. Profile where a step's time goes on each path (torch.profiler: device
+6. Profile where a step's time goes on each path (torch.profiler: device
    busy share and the heaviest kernels of one prefill step and of decode
-   steps).
-6. Train GPT-2-125M at full width through the port's ``make_train_step``
+   steps), with the flight recorder's summed ``llm`` phase host times of
+   the same windows beside the device time.
+7. The telemetry A/B on ``serve`` and ``serve_paged``: the same 6-request
+   traffic with ``metrics_enabled`` and ``flightrec`` off, then on, three
+   rounds in turn on one engine, each timed on the host clock and then
+   profiled over 8 decode steps. The greedy streams must be identical
+   between the arms and the decode device time may move by at most 3 %;
+   printed as one ``{"telemetry_ab": ...}`` line.
+8. Batch inference: ``build_llm_processor`` on GPT-2-125M (the default
+   config) takes one batch of 4 prompts twice; the second call must reuse
+   the cached engine, and the texts must equal that engine's
+   ``generate`` (``{"batch": ...}``).
+9. Train GPT-2-125M at full width through the port's ``make_train_step``
    (batch [8, 1024], bf16 activations, f32 masters, ``remat="mlp"``,
    ``loss_chunk=0``): one step's loss and gradient norm through the kernels
    against the plain attention, 3 warm-up and 10 timed steps with the
    launch counts zeroed just before the timed steps and read just after,
    one step at ``loss_chunk=128`` against ``loss_chunk=0``, and one
    profiled step (``train``).
-7. The same for Llama-125M (``train_llama``): ``LlamaConfig.llama_125m()``
+10. The same for Llama-125M (``train_llama``): ``LlamaConfig.llama_125m()``
    with its defaults ``remat="mlp"`` and ``loss_chunk=128`` (checked
    against ``loss_chunk=0``); the kernels run on K/V repeated from 4 KV
    heads, 12 flash_fwd and 12 flash_bwd launches a step.
-8. Speculative decoding with a GPT-2-125M target, in the reference's own
+11. Speculative decoding with a GPT-2-125M target, in the reference's own
    spec-decoding probe shape (4 slots, 1024 positions, 3 greedy streams of
    200 tokens after a warm-up request, k=4), on the dense cache (``spec``)
    and the paged one (``spec_paged``). Three arms each: vanilla, a 1-layer
@@ -54,7 +74,11 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the two tokens within bf16's noise (a near tie rounded the other way
    by the verify's wider products); the dense arms launch flash_fwd 12
    times per target prefill plus once per draft layer per draft prefill,
-   the paged ones never.
+   the paged ones never. Every arm's telemetry is checked as in phase 4,
+   with the drafted and accepted counters and the accept-rate gauge.
+
+Telemetry stays on (``GLOBAL_CONFIG`` of :mod:`ray_tpu_torch.core.config`)
+for every phase but the A/B's "off" arm.
 
 Prints one ``{"kernels": [...]}`` line, then as its last line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it prints no result
@@ -75,18 +99,21 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
-from ray_tpu_torch.llm.engine import LLMEngine
+from ray_tpu_torch.core.config import GLOBAL_CONFIG
+from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams, build_llm_processor
+from ray_tpu_torch.llm import batch as llm_batch
 from ray_tpu_torch.models import common, gpt2, llama, paged
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops import _build, attention
 from ray_tpu_torch.train import spmd
+from ray_tpu_torch.util import flightrec, metrics
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
 # is the larger of its bytes over the memory rate and its operations over
@@ -120,6 +147,10 @@ WARMUP_STEPS, TIMED_STEPS = 3, 10
 # The reference's spec-decoding probe (tools/ray_perf.py:461-515).
 SPEC_K, SPEC_STREAMS, SPEC_TOKENS = 4, 3, 200
 KERNELS = ("flash_fwd", "flash_bwd")
+# Telemetry A/B: alternating rounds of each arm, decode steps profiled per
+# round, and the most the decode device time may move between the arms.
+AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 3, 8, 0.03
+BATCH_PROMPTS = ["The quick brown fox", "Hello, world", "ray_tpu on the H100", "batch inference"]
 
 
 def log(*a):
@@ -385,6 +416,168 @@ def token_ids(rng, engine):
     return lambda n: rng.integers(0, vocab, n).tolist()
 
 
+def llm_points() -> dict:
+    """The port registry's raytpu_llm_* points, by (name, tags)."""
+    return {(n, frozenset(t.items())): v for n, t, v in metrics.registry().snapshot()["points"]
+            if n.startswith("raytpu_llm_")}
+
+
+def begin_telemetry(engine) -> dict:
+    """Empty the flight recorder's rings and keep the registry's points and
+    the engine's stats, at the start of a window."""
+    flightrec.reset()
+    return dict(points=llm_points(), stats=dict(engine.stats))
+
+
+def llm_events() -> list:
+    ring = flightrec.snapshot(planes=["llm"])["rings"].get("llm", {"events": [], "dropped": 0})
+    assert ring["dropped"] == 0, ring["dropped"]
+    return ring["events"]
+
+
+def hist_summary(name, points, before) -> dict:
+    """Observations of one histogram in a window: count, sum, mean and the
+    bucket bounds under which half and 95 % of them fall."""
+    key = (name, frozenset())
+    now = points.get(key)
+    if now is None:
+        return dict(count=0)
+    old = before.get(key, dict(count=0, sum=0.0, buckets=[0] * len(now["buckets"])))
+    count, total = now["count"] - old["count"], now["sum"] - old["sum"]
+    bounds = metrics.registry().snapshot()["meta"][name]["boundaries"]
+    buckets = [n - o for n, o in zip(now["buckets"], old["buckets"])]
+    le = lambda q: next((1e3 * x for x, c in zip(bounds, buckets) if c >= q * count), None)  # noqa: E731
+    return dict(count=count, sum_s=total, mean_ms=1e3 * total / count if count else None,
+                p50_le_ms=le(0.5), p95_le_ms=le(0.95))
+
+
+def phase_ms(events) -> dict:
+    """Host time summed over each llm phase, and its event count."""
+    out: dict = {}
+    for e in events:
+        ms, n = out.get(e["phase"], (0.0, 0))
+        out[e["phase"]] = (ms + 1e3 * e["dur_s"], n + 1)
+    return {k: dict(ms=ms, events=n) for k, (ms, n) in sorted(out.items())}
+
+
+def check_telemetry(engine, start: dict, run: dict) -> dict:
+    """The window's registry delta and llm ring against what the engine did
+    (``run``, from :func:`drive`); fails unless every check holds."""
+    points = llm_points()
+    before = start["points"]
+
+    def counter(name):
+        key = (name, frozenset())
+        return points.get(key, 0.0) - before.get(key, 0.0)
+
+    def gauge(name):
+        return points.get((name, frozenset({("replica", "local")})))
+
+    events = llm_events()
+    stats = {k: engine.stats[k] - start["stats"][k] for k in engine.stats}
+    phases = [e["phase"] for e in events]
+    ttft = hist_summary("raytpu_llm_ttft_seconds", points, before)
+    itl = hist_summary("raytpu_llm_itl_seconds", points, before)
+    prefill_events = [e for e in events if e["phase"] in ("llm.prefill", "llm.prefill_chunk")]
+    checks = {
+        "generated_tokens": (counter("raytpu_llm_generated_tokens_total"), stats["tokens_generated"]),
+        "requests": (counter("raytpu_llm_requests_total"), run["requests"]),
+        "prompt_tokens": (counter("raytpu_llm_prompt_tokens_total"), run["prompt_tokens"]),
+        "ttft_count": (ttft["count"], run["first_tokens"]),
+        # Every token after a request's first observes one inter-token
+        # latency (a spec burst's later tokens observe 0.0).
+        "itl_count": (itl["count"], stats["tokens_generated"] - run["first_tokens"]),
+        "first_token_events": (phases.count("llm.first_token"), run["requests"]),
+        "decode_step_events": (phases.count("llm.decode_step"), run["vanilla_decode_steps"]),
+        "prefill_and_chunk_events": (len(prefill_events), run["prefill_calls"]),
+        "prefill_chunk_events": (phases.count("llm.prefill_chunk"), stats["prefill_chunks"]),
+        "prefill_chunks_counter": (counter("raytpu_llm_prefill_chunks_total"), stats["prefill_chunks"]),
+        "prefill_event_tokens": (sum(e["extra"]["tokens"] for e in prefill_events),
+                                 stats["prefill_tokens"]),
+        "prefill_event_reused": (sum(e["extra"].get("reused", 0) for e in prefill_events),
+                                 stats["prefix_tokens_reused"]),
+    }
+    if engine.stats["prefix_lookups"]:
+        checks["prefix_hit_rate"] = (gauge("raytpu_llm_prefix_hit_rate"),
+                                     engine.stats["prefix_hits"] / engine.stats["prefix_lookups"])
+    if engine.paged:
+        kv = engine.kv_stats()
+        checks["kv_utilization"] = (gauge("raytpu_llm_kv_utilization"),
+                                    kv["blocks_used"] / kv["blocks_total"])
+    if engine._spec is not None:
+        checks["spec_drafted"] = (counter("raytpu_llm_spec_drafted_total"), stats["spec_drafted"])
+        checks["spec_accepted"] = (counter("raytpu_llm_spec_accepted_total"), stats["spec_accepted"])
+        checks["spec_accept_rate"] = (gauge("raytpu_llm_spec_accept_rate"), engine._spec.accept_rate())
+    failed = {k: v for k, v in checks.items() if v[0] != v[1]}
+    assert not failed, f"telemetry disagrees with the engine: {failed}"
+    assert all(e["dur_s"] >= 0.0 for e in events)
+    return dict(switches={f: getattr(GLOBAL_CONFIG, f) for f in ("metrics_enabled", "flightrec",
+                                                                  "spec_decode")},
+                checks={k: v[0] for k, v in checks.items()}, all_checks_hold=True,
+                ttft=ttft, itl=itl, host_phases=phase_ms(events))
+
+
+def count_prefill_calls(engine) -> list:
+    """Wrap the engine's three prefill bodies on the instance to count their
+    calls (fresh, continued and paged prefills and chunks); returns the
+    one-element counter. The wrappers hold the engine weakly: a cycle
+    through its own attributes would keep a deleted engine's cache alive
+    into the next path's peak memory."""
+    calls, ref = [0], weakref.ref(engine)
+    for name in ("_prefill_impl", "_prefill_cont_impl", "_pg_prefill_impl"):
+
+        def counted(*a, _body=getattr(type(engine), name), **kw):
+            calls[0] += 1
+            return _body(ref(), *a, **kw)
+
+        setattr(engine, name, counted)
+    return calls
+
+
+def drive(engine, prompts: dict, sampling, on_step=None) -> dict:
+    """Admit ``prompts`` (request id -> prompt) and step ``engine`` until
+    every request finishes, counting on the host what each step did: first
+    tokens, vanilla decode steps (a step whose tokens are not all first
+    tokens, and that ran no spec step), prefill calls, and the host time of
+    steps that admitted nothing (each ends in its logits readback, so it is
+    synchronised)."""
+    calls = engine.__dict__.get("_prefill_calls")
+    if calls is None:
+        calls = engine._prefill_calls = count_prefill_calls(engine)
+    calls0 = calls[0]
+    reqs = {}
+    for rid, p in prompts.items():
+        engine.add_request(rid, p, sampling)
+        reqs[rid] = engine.requests[rid]
+    out = dict(requests=len(prompts), prompt_tokens=sum(len(r.prompt) for r in reqs.values()),
+               first_tokens=0, vanilla_decode_steps=0, steps=0, decode_s=0.0, decode_steps=0,
+               decode_tokens=0)
+    finished = []
+    while engine.has_unfinished():
+        admitting = any(r.slot < 0 for r in engine.requests.values() if not r.finished)
+        fresh = [r for r in reqs.values() if not r.generated]
+        tok0, spec0 = engine.stats["tokens_generated"], engine.stats["spec_steps"]
+        ts = time.perf_counter()
+        finished += engine.step()
+        dt = time.perf_counter() - ts
+        firsts = sum(1 for r in fresh if r.generated)
+        decoded = engine.stats["tokens_generated"] - tok0 - firsts
+        out["steps"] += 1
+        out["first_tokens"] += firsts
+        if decoded and engine.stats["spec_steps"] == spec0:
+            out["vanilla_decode_steps"] += 1
+        if not admitting:
+            out["decode_s"] += dt
+            out["decode_steps"] += 1
+            out["decode_tokens"] += engine.stats["tokens_generated"] - tok0
+        if on_step is not None:
+            on_step()
+    out["prefill_calls"] = calls[0] - calls0
+    out["finished"] = finished
+    out["streams"] = {rid: list(r.generated) for rid, r in reqs.items()}
+    return out
+
+
 def serve_engine(engine, rng) -> dict:
     """One serving path: 6 requests of ~20 to ~1000 prompt tokens through
     ``engine``, two of them sharing a 64-token prefix, with the kernels'
@@ -394,43 +587,29 @@ def serve_engine(engine, rng) -> dict:
     # Warm-up request (cuBLAS handles, allocator), not part of the run.
     engine.generate([ids(40)], SamplingParams(max_tokens=2))
 
-    prefix = ids(64)
-    prompts = {
-        "p20": ids(20),
-        "p100": ids(100),
-        "p300": ids(300),
-        "p1000": ids(1000),
-        "shared_a": prefix + ids(30),
-        "shared_b": prefix + ids(50),  # hits shared_a's pooled 64-token prefix
-    }
+    prompts = traffic(engine, rng)  # shared_b hits shared_a's pooled 64-token prefix
+    prefix = prompts["shared_a"][:64]
     hits0 = engine.stats["prefix_hits"]
     ttft0 = len(engine._ttft_window)
     shared_refcounts = []
-    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
-    t0 = time.perf_counter()
-    for rid, p in prompts.items():
-        engine.add_request(rid, p, SamplingParams(max_tokens=MAX_TOKENS))
-    finished, decode_s, decode_tokens, decode_steps, steps = [], 0.0, 0, 0, 0
-    while engine.has_unfinished():
-        admitting = any(r.slot < 0 for r in engine.requests.values() if not r.finished)
-        before = engine.stats["tokens_generated"]
-        ts = time.perf_counter()
-        finished += engine.step()  # ends in the logits readback: synchronised
-        dt = time.perf_counter() - ts
-        steps += 1
-        if not admitting:
-            decode_s += dt
-            decode_steps += 1
-            decode_tokens += engine.stats["tokens_generated"] - before
+
+    def check_sharing():
         b = engine.requests.get("shared_b")
         if engine.paged and b is not None and b.slot >= 0:
             # shared_b runs on shared_a's pooled prefix blocks, not a copy.
             entry = next(e for e in engine._prefix_pool.values() if e["tokens"] == tuple(prefix))
             assert b.blocks[: len(entry["blocks"])] == entry["blocks"], (b.blocks, entry)
             shared_refcounts.append(min(engine.block_mgr.refcount(x) for x in entry["blocks"]))
+
+    start = begin_telemetry(engine)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
+    t0 = time.perf_counter()
+    run = drive(engine, prompts, SamplingParams(max_tokens=MAX_TOKENS), check_sharing)
     wall_s = time.perf_counter() - t0
     launches = attention.flash_fwd_launches  # read just after
     bwd_launches = attention.flash_bwd_launches
+    telemetry = check_telemetry(engine, start, run)
+    finished, decode_s, decode_steps = run["finished"], run["decode_s"], run["decode_steps"]
     engine.pop_finished()
 
     hits = engine.stats["prefix_hits"] - hits0
@@ -462,15 +641,16 @@ def serve_engine(engine, rng) -> dict:
     return dict(
         launches=launches, bwd_launches=bwd_launches, fresh_prefills=fresh,
         prefix_hits=hits, **paged_run,
-        steps=steps, wall_s=wall_s, ttft_ms_in_admission_order=ttft_ms,
+        steps=run["steps"], wall_s=wall_s, ttft_ms_in_admission_order=ttft_ms,
         ttft_ms_alone_1000=alone_ttft_ms,
-        decode_tok_s=decode_tokens / decode_s if decode_s else 0.0,
+        decode_tok_s=run["decode_tokens"] / decode_s if decode_s else 0.0,
         decode_step_ms=1e3 * decode_s / decode_steps if decode_steps else 0.0,
         generated={rid: len(r.generated) for rid, r in by_id.items()},
         first_tokens={rid: r.generated[0] for rid, r in by_id.items()},
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
         kv_gb=kv_bytes(engine) / 1e9,
         prompt=prompts["p300"],
+        telemetry=telemetry,
     )
 
 
@@ -591,17 +771,143 @@ def profile_engine(engine, rng) -> dict:
     window = functools.partial(profile_window, engine.step)
 
     engine.add_request("prof-prefill", ids(1000), SamplingParams(max_tokens=2))
+    flightrec.reset()
     prefill = window(1)
+    prefill["host_phases"] = phase_ms(llm_events())  # the same window's flight recorder
     while engine.has_unfinished():
         engine.step()
     for i in range(6):
         engine.add_request(f"prof-{i}", ids(100), SamplingParams(max_tokens=16))
     engine.step()  # admissions
+    flightrec.reset()
     decode = window(8)
+    decode["host_phases"] = phase_ms(llm_events())
     while engine.has_unfinished():
         engine.step()
     engine.pop_finished()
     return dict(prefill_1000=prefill, decode_6_active=decode)
+
+
+PROFILED_PHASES = ("llm.prefill", "llm.prefill_chunk", "llm.decode_step")
+
+
+def profiled_phases(prof: dict) -> dict:
+    """Each profiled window's device time beside the host time that the
+    flight recorder's prefill and decode phases summed over the same window
+    (a first-token phase there would span the time since admission, which
+    includes the profiler's start)."""
+    return {name: dict(device_ms=w["device_ms"], wall_ms=w["wall_ms"],
+                       host_phases={k: v for k, v in w["host_phases"].items() if k in PROFILED_PHASES})
+            for name, w in prof.items()}
+
+
+def traffic(engine, rng) -> dict:
+    """The serving paths' 6 requests: ~20 to ~1000 prompt tokens, two of
+    them sharing a 64-token prefix."""
+    ids = token_ids(rng, engine)
+    prefix = ids(64)
+    return {"p20": ids(20), "p100": ids(100), "p300": ids(300), "p1000": ids(1000),
+            "shared_a": prefix + ids(30), "shared_b": prefix + ids(50)}
+
+
+def median(xs):
+    return float(np.median(xs))
+
+
+def telemetry_ab(engine, per_layer: int) -> dict:
+    """The telemetry switches' A/B on one engine: the serving traffic with
+    ``metrics_enabled`` and ``flightrec`` off, then on, AB_ROUNDS times in
+    turn, after one warm-up round that fills the prefix pool (so that every
+    round sees the same pool and runs the same prefills). Each round
+    times the traffic on the host clock, then runs it again and profiles
+    AB_DECODE_STEPS decode steps at 6 active slots. The greedy streams must
+    be identical between arms and the decode device time may move by no
+    more than AB_DEVICE_TOL."""
+    prompts = traffic(engine, np.random.default_rng(2))
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+
+    def one_round(tag: str, on: bool) -> dict:
+        GLOBAL_CONFIG.metrics_enabled = GLOBAL_CONFIG.flightrec = on
+        try:
+            timed = drive(engine, {f"{tag}-{k}": p for k, p in prompts.items()}, sampling)
+            engine.pop_finished()
+            for k, p in prompts.items():
+                engine.add_request(f"{tag}-prof-{k}", p, sampling)
+            engine.step()  # admissions
+            prof = profile_window(engine.step, AB_DECODE_STEPS)
+            while engine.has_unfinished():
+                engine.step()
+            prof_streams = {r.request_id: r.generated for r in engine.pop_finished()}
+        finally:
+            GLOBAL_CONFIG.metrics_enabled = GLOBAL_CONFIG.flightrec = True
+        return dict(
+            streams=[timed["streams"][f"{tag}-{k}"] for k in prompts],
+            profiled_streams=[prof_streams[f"{tag}-prof-{k}"] for k in prompts],
+            decode_tok_s=timed["decode_tokens"] / timed["decode_s"],
+            host_ms_per_step=1e3 * timed["decode_s"] / timed["decode_steps"],
+            device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
+        )
+
+    one_round("ab-warm", True)
+    calls0, hits0 = engine._prefill_calls[0], engine.stats["prefix_hits"]
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the A/B
+    rounds = [one_round(f"ab{i}-{arm}", arm == "on") for i in range(AB_ROUNDS) for arm in ("off", "on")]
+    launches = attention.flash_fwd_launches  # read just after
+    bwd_launches = attention.flash_bwd_launches
+    fresh = engine._prefill_calls[0] - calls0 - (engine.stats["prefix_hits"] - hits0)
+    assert launches == per_layer * engine.model_config.n_layer * fresh, (launches, fresh)
+    assert bwd_launches == 0, bwd_launches
+    for key in ("streams", "profiled_streams"):
+        assert all(r[key] == rounds[0][key] for r in rounds), f"A/B: {key} differ between rounds"
+    arms = {}
+    for arm, rs in (("off", rounds[0::2]), ("on", rounds[1::2])):
+        arms[arm] = {k: [r[k] for r in rs] for k in ("decode_tok_s", "host_ms_per_step", "device_ms",
+                                                    "profiled_wall_ms")}
+        arms[arm].update({f"median_{k}": median(v) for k, v in list(arms[arm].items())})
+    moved = arms["on"]["median_device_ms"] / arms["off"]["median_device_ms"] - 1.0
+    assert abs(moved) <= AB_DEVICE_TOL, f"A/B: decode device time moved {moved:+.4f}"
+    return dict(rounds=AB_ROUNDS, order="off,on alternating", decode_steps_profiled=AB_DECODE_STEPS,
+                arms=arms, device_ms_moved=moved, device_tol=AB_DEVICE_TOL,
+                host_ms_per_step_on_over_off=arms["on"]["median_host_ms_per_step"]
+                / arms["off"]["median_host_ms_per_step"],
+                streams_identical=True, launches=launches, bwd_launches=bwd_launches,
+                fresh_prefills=fresh)
+
+
+def batch_path() -> dict:
+    """``build_llm_processor`` on GPT-2-125M (the default config: paged KV,
+    16 slots x 2048 positions, seed 0): one batch of 4 prompts through the
+    processor twice, which must reuse its cached engine; its texts must
+    equal that engine's ``generate``."""
+    config = LLMConfig(seed=0)
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+    proc = build_llm_processor(config, sampling=sampling)
+    batch = {"prompt": BATCH_PROMPTS, "id": list(range(len(BATCH_PROMPTS)))}
+    n0 = len(llm_batch._ENGINE_CACHE)
+    requests0 = llm_points().get(("raytpu_llm_requests_total", frozenset()), 0.0)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
+    t0 = time.perf_counter()
+    first = proc(batch)  # builds the engine
+    first_s = time.perf_counter() - t0
+    engine = llm_batch._engine_for(config, "cuda")
+    t0 = time.perf_counter()
+    second = proc(batch)
+    second_s = time.perf_counter() - t0
+    launches = attention.flash_fwd_launches  # read just after
+    bwd_launches = attention.flash_bwd_launches
+    requests = llm_points()[("raytpu_llm_requests_total", frozenset())] - requests0
+    assert llm_batch._engine_for(config, "cuda") is engine, "the processor built a second engine"
+    assert len(llm_batch._ENGINE_CACHE) == n0 + 1
+    texts = [o["text"] for o in engine.generate(BATCH_PROMPTS, sampling)]
+    assert first["generated_text"] == second["generated_text"] == texts, (first, second, texts)
+    assert first["id"] == batch["id"] and len(texts) == len(BATCH_PROMPTS)
+    assert requests == 2 * len(BATCH_PROMPTS), requests
+    assert engine.paged and (launches, bwd_launches) == (0, 0), (launches, bwd_launches)
+    llm_batch._ENGINE_CACHE.clear()
+    return dict(model="GPT2Config", paged=True, prompts=len(BATCH_PROMPTS), calls=2,
+                engine_reused=True, texts_equal_generate=True, first_call_s=first_s,
+                second_call_s=second_s, requests_counted=requests, launches=launches,
+                bwd_launches=bwd_launches, texts=texts)
 
 
 def model_of(cfg):
@@ -751,32 +1057,32 @@ def spec_arm(engine, record_logits: bool) -> dict:
     sampled position's f32 logits are kept, by (stream, index)."""
     logits_at: dict = {}
     if record_logits:
-        sample = engine._sample
+        sample, ref = type(engine)._sample, weakref.ref(engine)  # no cycle: see count_prefill_calls
 
         def recording_sample(logits, req):
             logits_at[(req.request_id, len(req.generated))] = np.array(logits, np.float32)
-            return sample(logits, req)
+            return sample(ref(), logits, req)
 
         engine._sample = recording_sample
     engine.generate(["warm me"], SamplingParams(max_tokens=8))
     logits_at.clear()
     stats0 = dict(engine.stats)
+    start = begin_telemetry(engine)
     attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before
     t0 = time.perf_counter()
-    out = engine.generate([f"stream {i}" for i in range(SPEC_STREAMS)],
-                          SamplingParams(max_tokens=SPEC_TOKENS))
+    run = drive(engine, {f"s{i}": f"stream {i}" for i in range(SPEC_STREAMS)},
+                SamplingParams(max_tokens=SPEC_TOKENS))
     seconds = time.perf_counter() - t0
     launches = attention.flash_fwd_launches  # read just after
     bwd_launches = attention.flash_bwd_launches
+    telemetry = check_telemetry(engine, start, run)
+    engine.pop_finished()
     delta = {k: engine.stats[k] - stats0[k] for k in engine.stats}
-    assert all(o["error"] is None for o in out)
-    # Streams by their order (request ids differ between engines).
-    streams = {f"s{i}": o["token_ids"] for i, o in enumerate(out)}
-    logits_at = {(f"s{i}", j): v for i, o in enumerate(out)
-                 for (rid, j), v in logits_at.items() if rid == o["request_id"]}
+    assert all(r.error is None for r in run["finished"])
+    streams = run["streams"]  # by stream, "s0"... (the same ids in every arm)
     spec = engine._spec
     draft_layers = spec.cfg.n_layer if spec is not None else 0
-    prompts = len(out)  # no prefix caching: every stream prefills whole
+    prompts = len(streams)  # no prefix caching: every stream prefills whole
     per_prefill = 0 if engine.paged else engine.model_config.n_layer + draft_layers
     assert launches == per_prefill * prompts, (launches, per_prefill, prompts)
     if spec is not None:
@@ -787,7 +1093,8 @@ def spec_arm(engine, record_logits: bool) -> dict:
         tok_s=delta["tokens_generated"] / seconds, steps_stats=delta,
         accept_rate=(delta["spec_accepted"] / delta["spec_drafted"]) if delta["spec_drafted"] else None,
         launches=launches, bwd_launches=bwd_launches, launches_per_prefill=per_prefill,
-        lengths=[len(t) for t in streams.values()],
+        lengths=[len(t) for t in streams.values()], vanilla_decode_steps=run["vanilla_decode_steps"],
+        telemetry=telemetry,
     )
 
 
@@ -830,6 +1137,7 @@ def spec_path(name: str, fields: dict, bound: float, tmp: str) -> dict:
         if arm != "vanilla":
             run["divergences"] = compare_streams(arms["vanilla"], run, bound)
             run["profile_steps"] = profile_spec_steps(engine)
+            run["telemetry"]["profiled"] = profiled_phases({"spec_steps": run["profile_steps"]})
         run.update(peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
                    phase_s=time.perf_counter() - t_arm)
         arms[arm] = run
@@ -853,7 +1161,9 @@ def profile_spec_steps(engine) -> dict:
         engine.add_request(f"prof-{i}", f"profile {i}", SamplingParams(max_tokens=64))
     engine.step()  # admissions and the draft prefills
     steps0 = engine.stats["spec_steps"]
+    flightrec.reset()
     prof = profile_window(engine.step, 4)
+    prof["host_phases"] = phase_ms(llm_events())  # the same window's flight recorder
     prof["spec_steps"] = engine.stats["spec_steps"] - steps0
     while engine.has_unfinished():
         engine.step()
@@ -896,7 +1206,10 @@ def main() -> int:
 
     fwd_rows = check_flash_kernel(dev)
     bwd_rows = check_flash_bwd_kernel(dev)
-    serve_launches, dense_checks, bf16_bound = {}, {}, None
+    # Telemetry on, as the reference runs by default, for every phase but
+    # the A/B's "off" arm.
+    GLOBAL_CONFIG.metrics_enabled = GLOBAL_CONFIG.flightrec = GLOBAL_CONFIG.spec_decode = True
+    serve_launches, dense_checks, bf16_bound, ab = {}, {}, None, {}
     for name, fields, per_layer in SERVE_PATHS:
         t_phase = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -914,13 +1227,27 @@ def main() -> int:
         if name == "serve":
             bf16_bound = logits["tol"]  # GPT-2's bf16 noise on first-token logits
         prof = profile_engine(engine, np.random.default_rng(1))
+        run["telemetry"]["profiled"] = profiled_phases(prof)
         print(json.dumps({"serve": {"path": name, "model": family, "paged": engine.paged,
                                     "engine": run, "first_token_logits": logits,
                                     "profile": prof,
                                     "phase_s": time.perf_counter() - t_phase}}), flush=True)
+        if name in ("serve", "serve_paged"):
+            t_ab = time.perf_counter()
+            ab[name] = telemetry_ab(engine, per_layer)
+            ab[name]["phase_s"] = time.perf_counter() - t_ab
+            serve_launches[f"{name}_ab"] = (ab[name]["launches"], ab[name]["bwd_launches"])
         del engine, keep
         torch.cuda.empty_cache()
     del dense_checks
+    print(json.dumps({"telemetry_ab": ab}), flush=True)
+
+    t_batch = time.perf_counter()
+    batch = batch_path()
+    batch["phase_s"] = time.perf_counter() - t_batch
+    serve_launches["batch"] = (batch["launches"], batch["bwd_launches"])
+    print(json.dumps({"batch": batch}), flush=True)
+    torch.cuda.empty_cache()
 
     train = train_path(dev, train_config())
     print(json.dumps({"train": train}), flush=True)

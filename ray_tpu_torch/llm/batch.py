@@ -1,0 +1,62 @@
+"""Batch inference: an LLM processor over dict batches. Port of
+``ray_tpu/llm/batch.py``.
+
+``build_llm_processor`` returns a callable over a column batch (a dict of
+lists, as ``Dataset.map_batches`` hands it) that generates one text per
+prompt. The engine is built on the first call and cached per process, so
+later batches reuse it. The port has no Data layer yet: callers call the
+processor directly.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
+
+_ENGINE_CACHE: dict = {}
+
+
+def _engine_for(config: LLMConfig, device: "str | torch.device"):
+    key = (
+        config.model_id,
+        config.max_slots,
+        config.max_seq,
+        config.seed,
+        config.weights_path,
+        config.tensor_parallelism,
+        repr(config.model_config),  # dataclass -> stable repr
+        str(torch.device(device)),
+    )
+    eng = _ENGINE_CACHE.get(key)
+    if eng is None:
+        from ray_tpu_torch.llm.engine import LLMEngine
+
+        eng = LLMEngine(config, device=device)
+        _ENGINE_CACHE[key] = eng
+    return eng
+
+
+def build_llm_processor(
+    config: LLMConfig,
+    *,
+    input_column: str = "prompt",
+    output_column: str = "generated_text",
+    sampling: Optional[SamplingParams] = None,
+    device: "str | torch.device" = "cuda",
+):
+    """Returns fn(batch: dict) -> dict: the batch with ``output_column``
+    added. The engine runs on ``device``: the card unless the caller asks
+    for the CPU."""
+
+    def process(batch: dict) -> dict:
+        prompts = [str(p) for p in batch[input_column]]
+        if not prompts:
+            return {**batch, output_column: []}
+        engine = _engine_for(config, device)
+        results = engine.generate(prompts, sampling)
+        return {**batch, output_column: [r["text"] for r in results]}
+
+    return process

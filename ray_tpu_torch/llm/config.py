@@ -5,9 +5,10 @@ The config holds only the fields the port's engine reads: the model (a
 paged pool by default, as in the reference: ``kv_block_size=16`` and
 ``num_kv_blocks``; 0 selects the dense per-slot cache), weights, prefix
 caching, chunked prefill and speculative decoding (``spec_decode_tokens``
-with a draft model). ``tensor_parallelism > 1`` names later work and makes
-the engine raise ``NotImplementedError``. The reference's model id and
-replica placement arrive with the code that reads them.
+with a draft model), and the model id that the batch entry point's engine
+cache keys on. ``tensor_parallelism > 1`` names later work and makes the
+engine raise ``NotImplementedError``. The reference's replica placement
+arrives with the serve layer that reads it.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ class SamplingParams:
 
 @dataclasses.dataclass
 class LLMConfig:
+    model_id: str = "gpt2-125m"
     # None -> GPT2Config.gpt2_125m(); or a LlamaConfig; tests pass tiny ones.
     model_config: Any = None
     # Serving shape

@@ -31,6 +31,21 @@ families).
   (:class:`~ray_tpu_torch.llm.spec_decode.SpecDecoder`); any other step is
   the vanilla one, with the same greedy tokens.
 
+- **Telemetry**, recorded where the reference records it: the serving
+  series (TTFT and inter-token-latency histograms, request, prompt-token,
+  generated-token and prefill-chunk counters, KV-utilization and
+  prefix-hit-rate gauges) in the process registry
+  (:mod:`ray_tpu_torch.util.metrics`), and the flight-recorder phases
+  ``llm.prefill``, ``llm.prefill_chunk``, ``llm.first_token`` and
+  ``llm.decode_step`` in the ``llm`` ring
+  (:mod:`ray_tpu_torch.util.flightrec`). Every timestamp is a host clock
+  read where the host already is: a prefill phase's duration is the
+  host's dispatch time, and TTFT and ITL stamps follow the readback that
+  the step takes anyway, so telemetry adds no device sync.
+  ``RAY_TPU_METRICS_ENABLED=0`` and ``RAY_TPU_FLIGHTREC=0`` turn the two
+  off; ``RAY_TPU_SPEC_DECODE=0`` builds no draft model
+  (:mod:`ray_tpu_torch.core.config`).
+
 Host state (positions, last tokens, slot table, block tables) lives in
 numpy. Each step reads the device back once, for the decode logits (a
 spec step: for the proposals and the verify argmax); admission reads back
@@ -38,8 +53,7 @@ the last-logits of a prompt to sample its first token, as the reference
 does.
 
 Not ported yet (they raise ``NotImplementedError``): tensor parallelism
-and the disaggregated prefill/decode handoff. The reference's metrics and
-flight recorder telemetry are not ported either.
+and the disaggregated prefill/decode handoff.
 """
 
 from __future__ import annotations
@@ -53,13 +67,70 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ray_tpu_torch.core.config import GLOBAL_CONFIG
 from ray_tpu_torch.llm.block_manager import BlockManager
 from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.spec_decode import SpecDecoder
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer
 from ray_tpu_torch.models import convert, gpt2, gpt2_decode, llama, llama_decode, paged
+from ray_tpu_torch.util import flightrec as _flightrec
+from ray_tpu_torch.util import metrics as _metrics
 from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
 from ray_tpu_torch.util.prefix_digest import BYTE_BOS_SCHEME, chain_digests
+
+# Serving SLO series (recorded per step, not per frame: a decode step is
+# milliseconds-scale, so registry locking is negligible here). TTFT =
+# admission to first sampled token; ITL = gap between a request's
+# consecutive tokens. Tokens-per-second is the rate of the counters.
+_TTFT_SECONDS = _metrics.Histogram(
+    "raytpu_llm_ttft_seconds",
+    "time to first token (request admission to first sample)",
+    boundaries=_metrics.LATENCY_BOUNDARIES_S,
+)
+_ITL_SECONDS = _metrics.Histogram(
+    "raytpu_llm_itl_seconds",
+    "inter-token latency (gap between consecutive generated tokens)",
+    boundaries=_metrics.LATENCY_BOUNDARIES_S,
+)
+_PROMPT_TOKENS = _metrics.Counter(
+    "raytpu_llm_prompt_tokens_total",
+    "prompt tokens admitted (prefix-cache reuse included)",
+)
+_GEN_TOKENS = _metrics.Counter(
+    "raytpu_llm_generated_tokens_total",
+    "tokens sampled by the decode loop",
+)
+_PREFILL_CHUNKS = _metrics.Counter(
+    "raytpu_llm_prefill_chunks_total",
+    "prefill chunks executed on the chunked-prefill path "
+    "(prefill_chunk_tokens > 0; one long prompt = several chunks "
+    "interleaved with decode steps)",
+)
+_REQUESTS = _metrics.Counter(
+    "raytpu_llm_requests_total", "requests admitted to the engine"
+)
+# Gauges carry a replica tag: merge is last-wins per (name, tags), so an
+# untagged gauge from N engine replicas would show one arbitrary
+# replica's value. Histograms/counters sum correctly and stay untagged.
+_KV_UTIL = _metrics.Gauge(
+    "raytpu_llm_kv_utilization",
+    "fraction of KV blocks in use (paged mode)",
+    tag_keys=("replica",),
+)
+_PREFIX_HIT_RATE = _metrics.Gauge(
+    "raytpu_llm_prefix_hit_rate",
+    "fraction of prefix-pool lookups that reused cached KV",
+    tag_keys=("replica",),
+)
+
+_REPLICA_TAGS = {"replica": "local"}
+
+
+def _replica_tags() -> dict:
+    """Engine-identity gauge tags. The reference tags a replica actor's
+    engine with the actor's truncated id and any other with "local"; the
+    port has no actors yet, so every engine is "local"."""
+    return _REPLICA_TAGS
 
 
 def _validate_block_multiple(name: str, value: int, block_size: int) -> None:
@@ -106,8 +177,10 @@ class _Request:
     # Speculative decoding: the draft model prefilled this request's
     # prompt, so the slot may join spec steps.
     spec_ready: bool = False
-    # Admission wall-clock, for the rolling TTFT window.
+    # Telemetry anchors: admission wall-clock and the previous token's
+    # timestamp (TTFT / inter-token latency).
     t_admit: float = 0.0
+    t_last_token: float = 0.0
 
 
 class LLMEngine:
@@ -205,12 +278,15 @@ class LLMEngine:
         self._rng = np.random.default_rng(config.seed)
         self._pf_rr = 0  # round-robin cursor over prefilling slots
         self._steps = 0
+        self._published_tokens = 0  # tokens already inc'd into the counter
         # Rolling TTFT window of (monotonic, seconds) pairs: a routing and
         # overload signal; samples expire by age as well as by count.
         self._ttft_window: deque = deque(maxlen=64)
         self.TTFT_WINDOW_S = 30.0
+        # Speculative decoding: built only when the config asks for it and
+        # the kill switch is not thrown.
         self._spec = None
-        if config.spec_decode_tokens > 0:
+        if config.spec_decode_tokens > 0 and GLOBAL_CONFIG.spec_decode:
             self._spec = SpecDecoder(self, config.draft_model_config, config.spec_decode_tokens)
 
     # -- device helpers --------------------------------------------------------
@@ -313,6 +389,9 @@ class LLMEngine:
             stop_token=stop,
             t_admit=_time.perf_counter(),
         )
+        if _metrics.metrics_enabled():
+            _REQUESTS.inc(1.0)
+            _PROMPT_TOKENS.inc(float(len(ids)))
 
     def add_handoff_request(self, request_id, handoff, sampling=None) -> None:
         raise NotImplementedError("disaggregated KV handoffs are not ported yet")
@@ -454,10 +533,40 @@ class LLMEngine:
         return admit_finished
 
     def _first_token(self, req: _Request, tok: int) -> None:
+        """Record a request's first sampled token (taken after the logits
+        readback): the TTFT window, histogram and flight-recorder phase."""
         req.generated.append(tok)
         self.stats["tokens_generated"] += 1
-        now = _time.perf_counter()
-        self._ttft_window.append((_time.monotonic(), now - req.t_admit))
+        req.t_last_token = _time.perf_counter()
+        self._ttft_window.append((_time.monotonic(), req.t_last_token - req.t_admit))
+        if _metrics.metrics_enabled():
+            _TTFT_SECONDS.observe(req.t_last_token - req.t_admit)
+        self._rec_first_token(req)
+
+    @staticmethod
+    def _rec_first_token(req: _Request) -> None:
+        """Flight-recorder TTFT phase: admission -> first sampled token,
+        recorded as one interval ending now (mono clock; t_admit is a
+        perf_counter anchor so the duration, not its wall start, is the
+        trusted quantity)."""
+        if not _flightrec.on():
+            return
+        ttft = max(0.0, req.t_last_token - req.t_admit)
+        _flightrec.record(
+            "llm", "llm.first_token",
+            t=_time.monotonic() - ttft, dur_s=ttft, rid=req.request_id,
+        )
+
+    @staticmethod
+    def _rec_prefill(phase: str, t0: float, req: _Request, **extra) -> None:
+        """A prefill phase from ``t0`` (monotonic) to now. The duration is
+        the host's dispatch time: on the card the kernels are still queued
+        when it ends, and their device time is the profiler's to read."""
+        if _flightrec.on():
+            _flightrec.record(
+                "llm", phase, t=t0, dur_s=_time.monotonic() - t0,
+                rid=req.request_id, **extra,
+            )
 
     def _admit_paged(self, req: _Request, slot: int):
         """Reserve blocks, point the slot's table at them (sharing a pooled
@@ -533,8 +642,10 @@ class LLMEngine:
             return None
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :rem] = req.prompt[P:]
+        t_pf = _time.monotonic()
         logits = self._pg_prefill_impl(toks, rem, P, row)
         self.stats["prefill_tokens"] += rem
+        self._rec_prefill("llm.prefill", t_pf, req, tokens=rem, reused=P)
         self._insert_prefix(req.prompt, slot, blocks=table)
         return logits
 
@@ -569,8 +680,10 @@ class LLMEngine:
                 return None
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :rem] = req.prompt[P:]
+            t_pf = _time.monotonic()
             logits = self._prefill_cont_impl(toks, rem, P, slot)
             self.stats["prefill_tokens"] += rem
+            self._rec_prefill("llm.prefill", t_pf, req, tokens=rem, reused=P)
         else:
             if self._chunks_feasible(0, T):
                 self._begin_chunked_prefill(req, slot, 0)
@@ -581,8 +694,10 @@ class LLMEngine:
             )
             toks = np.zeros((1, bucket), np.int64)
             toks[0, :T] = req.prompt
+            t_pf = _time.monotonic()
             logits = self._prefill_impl(toks, T, slot)
             self.stats["prefill_tokens"] += T
+            self._rec_prefill("llm.prefill", t_pf, req, tokens=T, reused=0)
         self._insert_prefix(req.prompt, slot)
         return logits
 
@@ -634,12 +749,16 @@ class LLMEngine:
         bucket = self._chunk_bucket(start, clen)
         toks = np.zeros((1, bucket), np.int64)
         toks[0, :clen] = req.prompt[start : start + clen]
+        t_pf = _time.monotonic()
         if self.paged:
             logits = self._pg_prefill_impl(toks, clen, start, self.block_tables[req.slot])
         else:
             logits = self._prefill_cont_impl(toks, clen, start, req.slot)
         self.stats["prefill_tokens"] += clen
         self.stats["prefill_chunks"] += 1
+        if _metrics.metrics_enabled():
+            _PREFILL_CHUNKS.inc(1.0)
+        self._rec_prefill("llm.prefill_chunk", t_pf, req, tokens=clen, start=start)
         req.pf_next = start + clen
         self.positions[req.slot] = req.pf_next
         return logits
@@ -714,6 +833,7 @@ class LLMEngine:
     def step(self) -> list:
         """Admit + one decode step for all active slots. Returns the
         requests that finished this step."""
+        instrument = _metrics.metrics_enabled()
         # Prefill chunks of already-admitted long prompts advance BEFORE
         # this step's admissions: one chunk per request per step.
         finished = self._advance_prefills()
@@ -725,6 +845,7 @@ class LLMEngine:
             # Prefilling slots decode too, as in the reference: their write
             # lands at positions[slot] == pf_next, in their own block or
             # row, where the next chunk overwrites it.
+            t_dec = _time.monotonic()
             if self.paged:
                 _, logits = paged.paged_decode(
                     self._cparams,
@@ -745,17 +866,30 @@ class LLMEngine:
                     self.model_config,
                 )
             logits_np = self._d2h(logits)  # the decode step's one readback
+            now = _time.perf_counter()
             for req in active:
                 slot = req.slot
                 self.positions[slot] += 1
                 tok = self._sample(logits_np[slot], req)
                 req.generated.append(tok)
                 self.stats["tokens_generated"] += 1
+                if instrument and req.t_last_token:
+                    _ITL_SECONDS.observe(now - req.t_last_token)
+                req.t_last_token = now
                 self.last_tokens[slot] = tok
                 self._maybe_finish(req)
                 if req.finished:
                     finished.append(req)
+            if _flightrec.on():
+                # Batch-wide phase (no rid): dispatch + logits readback +
+                # host sampling for every active slot this step.
+                _flightrec.record(
+                    "llm", "llm.decode_step", t=t_dec,
+                    dur_s=_time.monotonic() - t_dec, batch=len(active),
+                )
         self._steps += 1
+        if instrument:
+            self._publish_metrics()
         return finished
 
     def _spec_eligible(self, active: list) -> bool:
@@ -775,6 +909,23 @@ class LLMEngine:
             if not r.prefilling and not (r.spec_ready and r.temperature <= 0.0):
                 return False
         return True
+
+    def _publish_metrics(self) -> None:
+        """Per-step gauge/counter publication: the generated-token delta
+        since the last publish, KV-block utilization (the batching
+        headroom signal), and the prefix-pool hit rate."""
+        delta = self.stats["tokens_generated"] - self._published_tokens
+        if delta:
+            _GEN_TOKENS.inc(float(delta))
+            self._published_tokens = self.stats["tokens_generated"]
+        tags = _replica_tags()
+        if self.paged:
+            total = self.block_mgr.num_blocks - 1
+            if total > 0:
+                _KV_UTIL.set(self.block_mgr.used_blocks / total, tags)
+        lookups = self.stats["prefix_lookups"]
+        if lookups:
+            _PREFIX_HIT_RATE.set(self.stats["prefix_hits"] / lookups, tags)
 
     # Advertisement cap: the pool's token budget already bounds the digest
     # count, but a tiny chunk against a big budget must not grow it unboundedly.

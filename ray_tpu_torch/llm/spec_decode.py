@@ -23,21 +23,46 @@ positions leave stale KV in both caches, which is safe: the next consume
 at those positions scatters before it gathers, and unconsumed positions
 are masked (``col <= position``).
 
-Not ported: the reference's kill switch (``RAY_TPU_SPEC_DECODE``; here
-``spec_decode_tokens=0`` is the off switch), its spec metrics series and
-its inter-token latency observations (they come with the engine's
-telemetry).
+Telemetry, as the reference's: a spec step observes one inter-token
+latency per accepted token (the first pays the step's gap, the rest of the
+burst 0.0) into the engine's histogram, and counts drafted and accepted
+proposals with a cumulative accept-rate gauge. ``RAY_TPU_SPEC_DECODE=0``
+is the kill switch: the engine then builds no ``SpecDecoder`` and every
+step is the vanilla one.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import pickle
+import time as _time
 
 import numpy as np
 import torch
 
 from ray_tpu_torch.models import paged
+from ray_tpu_torch.util import metrics as _metrics
+
+# Telemetry rides the engine histograms/counters (ITL is observed by the
+# engine per accepted token); these series are the speculation-specific
+# view: proposal volume, acceptance, and the resulting rate.
+_SPEC_DRAFTED = _metrics.Counter(
+    "raytpu_llm_spec_drafted_total",
+    "draft tokens proposed AND eligible for acceptance (the per-slot k is "
+    "budget-clamped: a request one token from max_tokens can accept no "
+    "drafts, so its step contributes none — keeping accept_rate a pure "
+    "draft-quality signal). Draft-model cost is spec step count x k.",
+)
+_SPEC_ACCEPTED = _metrics.Counter(
+    "raytpu_llm_spec_accepted_total",
+    "draft tokens accepted by target verification (rate of this over "
+    "drafted = the accept rate)",
+)
+_SPEC_ACCEPT_RATE = _metrics.Gauge(
+    "raytpu_llm_spec_accept_rate",
+    "cumulative fraction of drafted tokens the target model accepted",
+    tag_keys=("replica",),  # gauge: untagged would last-wins across replicas
+)
 
 
 def dense_verify(
@@ -153,8 +178,11 @@ class SpecDecoder:
         """One propose, verify and accept cycle for the whole decode batch.
         Moves the engine's cache, positions and last tokens as a run of
         vanilla steps would; returns the requests that finished."""
+        from ray_tpu_torch.llm.engine import _ITL_SECONDS, _replica_tags
+
         eng = self.engine
         k = self.k
+        instrument = _metrics.metrics_enabled()
         last = eng._h2d(eng.last_tokens)
         pos = eng._h2d(eng.positions)
         tables = eng._h2d(eng.block_tables) if eng.paged else None
@@ -198,6 +226,7 @@ class SpecDecoder:
         # 3) Acceptance per active slot, on the host: the longest matching
         # draft prefix plus the corrected token, clamped to the request's
         # remaining budget; a stop token ends the burst.
+        now = _time.perf_counter()
         finished = []
         drafted = accepted = 0
         for req in active:
@@ -211,8 +240,14 @@ class SpecDecoder:
                 tok = int(greedy[b, i])
                 req.generated.append(tok)
                 applied += 1
+                if instrument and (req.t_last_token or i):
+                    # Burst semantics: the first token pays the step gap,
+                    # the rest land with it (that IS the client-visible
+                    # inter-token latency of an accepted burst).
+                    _ITL_SECONDS.observe((now - req.t_last_token) if i == 0 else 0.0)
                 if tok == req.stop_token or len(req.generated) >= req.max_tokens:
                     break
+            req.t_last_token = now
             eng.stats["tokens_generated"] += applied
             # The accept rate counts only drafts the budget could accept (a
             # perfect draft scores 1.0 wherever max_tokens falls).
@@ -226,6 +261,13 @@ class SpecDecoder:
         eng.stats["spec_steps"] += 1
         eng.stats["spec_drafted"] += drafted
         eng.stats["spec_accepted"] += accepted
+        if instrument:
+            _SPEC_DRAFTED.inc(float(drafted))
+            if accepted:
+                _SPEC_ACCEPTED.inc(float(accepted))
+            total = eng.stats["spec_drafted"]
+            if total:
+                _SPEC_ACCEPT_RATE.set(eng.stats["spec_accepted"] / total, _replica_tags())
         return finished
 
     def accept_rate(self) -> float:
