@@ -46,7 +46,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 7. The telemetry A/B on ``serve`` and ``serve_paged``: the same 6-request
    traffic with ``metrics_enabled`` and ``flightrec`` off, then on, three
    rounds in turn on one engine, each timed on the host clock and then
-   profiled over 8 decode steps. The greedy streams must be identical
+   profiled over 24 decode steps. The greedy streams must be identical
    between the arms and the decode device time may move by at most 3 %;
    printed as one ``{"telemetry_ab": ...}`` line.
 8. Batch inference: ``build_llm_processor`` on GPT-2-125M (the default
@@ -64,7 +64,25 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    with its defaults ``remat="mlp"`` and ``loss_chunk=128`` (checked
    against ``loss_chunk=0``); the kernels run on K/V repeated from 4 KV
    heads, 12 flash_fwd and 12 flash_bwd launches a step.
-11. Speculative decoding with a GPT-2-125M target, in the reference's own
+11. MoE GPT-2 (``train_moe``): GPT-2-125M's widths with 4 experts in every
+   block (capacity 1.5, aux weight 0.01), trained as in phase 9; "mlp"
+   remat resolves to "dots" under MoE, so each step runs 24 flash_fwd and
+   12 flash_bwd launches. It also prints the aux of every step (finite)
+   and the share of tokens an expert served in each layer.
+12. The mesh path (``train_mesh``): ``bench.py``'s call sequence on the
+   port (``make_mesh``, ``shardings_from_logical``,
+   ``make_train_state(param_shardings=)``, ``make_train_step(mesh=,
+   batch_spec=, param_shardings=)``, ``compile_train_step``) over NCCL at
+   world size 1, from a ``file://`` store in a temporary directory: one
+   all-reduce through the group; GPT-2-125M under ``MeshSpec(dp=1)`` and
+   MoE GPT-2 under ``MeshSpec(ep=1)``, each two steps equal to the
+   unsharded step's bit for bit (losses, params, moments); then the dense
+   sharded step timed as in phase 9 (12 + 12 launches a step). With two
+   or more cards it also runs ``dp=2`` (dense) and ``ep=2`` (MoE) across
+   two of them, one process each (this script with ``--mesh-rank``),
+   held to the unsharded step within the training tolerances; with one
+   card it says that these need a second card.
+13. Speculative decoding with a GPT-2-125M target, in the reference's own
    spec-decoding probe shape (4 slots, 1024 positions, 3 greedy streams of
    200 tokens after a warm-up request, k=4), on the dense cache (``spec``)
    and the paged one (``spec_paged``). Three arms each: vanilla, a 1-layer
@@ -104,6 +122,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
@@ -112,6 +131,7 @@ from ray_tpu_torch.llm import batch as llm_batch
 from ray_tpu_torch.models import common, gpt2, llama, paged
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops import _build, attention
+from ray_tpu_torch.parallel import DEFAULT_RULES, MeshSpec, P, make_mesh, shardings_from_logical
 from ray_tpu_torch.train import spmd
 from ray_tpu_torch.util import flightrec, metrics
 
@@ -149,7 +169,10 @@ SPEC_K, SPEC_STREAMS, SPEC_TOKENS = 4, 3, 200
 KERNELS = ("flash_fwd", "flash_bwd")
 # Telemetry A/B: alternating rounds of each arm, decode steps profiled per
 # round, and the most the decode device time may move between the arms.
-AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 3, 8, 0.03
+# A round's profiled window spans 24 of the 31 decode steps a request of
+# MAX_TOKENS has: the device time includes the logits readback to pageable
+# memory, whose duration follows the host (a round of 8 steps spread 2-3 %).
+AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 3, 24, 0.03
 BATCH_PROMPTS = ["The quick brown fox", "Hello, world", "ray_tpu on the H100", "batch inference"]
 
 
@@ -846,6 +869,7 @@ def telemetry_ab(engine, per_layer: int) -> dict:
             decode_tok_s=timed["decode_tokens"] / timed["decode_s"],
             host_ms_per_step=1e3 * timed["decode_s"] / timed["decode_steps"],
             device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
+            memcpy_ms=prof["device_ms_by_kind"].get("memcpy", {}).get("ms", 0.0),
         )
 
     one_round("ab-warm", True)
@@ -862,7 +886,7 @@ def telemetry_ab(engine, per_layer: int) -> dict:
     arms = {}
     for arm, rs in (("off", rounds[0::2]), ("on", rounds[1::2])):
         arms[arm] = {k: [r[k] for r in rs] for k in ("decode_tok_s", "host_ms_per_step", "device_ms",
-                                                    "profiled_wall_ms")}
+                                                    "profiled_wall_ms", "memcpy_ms")}
         arms[arm].update({f"median_{k}": median(v) for k, v in list(arms[arm].items())})
     moved = arms["on"]["median_device_ms"] / arms["off"]["median_device_ms"] - 1.0
     assert abs(moved) <= AB_DEVICE_TOL, f"A/B: decode device time moved {moved:+.4f}"
@@ -934,6 +958,18 @@ def train_config() -> "gpt2.GPT2Config":
     return cfg
 
 
+def moe_train_config() -> "gpt2.GPT2Config":
+    """GPT-2-125M's widths with 4 experts in each block, at the reference's
+    MoE test setting (capacity 1.5, aux weight 0.01,
+    tests/test_parallel_pp_ep.py:88), trained as train_config() is:
+    loss_chunk=0 and remat="mlp", which resolves to "dots" under MoE."""
+    cfg = dataclasses.replace(
+        train_config(), n_experts=4, expert_capacity_factor=1.5, moe_aux_weight=0.01
+    )
+    assert (cfg.n_experts, cfg.loss_chunk, cfg.remat) == (4, 0, "mlp"), cfg
+    return cfg
+
+
 def llama_train_config() -> LlamaConfig:
     """Llama-125M at full width with its defaults: remat="mlp",
     loss_chunk=128, bf16 activations, f32 masters."""
@@ -983,40 +1019,263 @@ def train_path(dev, cfg) -> dict:
     log("train checks", json.dumps(checks))
 
     step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=cfg), opt)
-    losses = []
-    for _ in range(WARMUP_STEPS):
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"])
+    out = timed_steps(step, state, batch)
+    n_experts = getattr(cfg, "n_experts", 0)
+    policy, per_step = launches_per_step(cfg, tokens, out["launches"])
+    if n_experts:
+        assert all(math.isfinite(x) for x in out["moe_aux"]), out["moe_aux"]
+        out["routed_share"] = routed_share(cfg, state["params"], tokens)
+    return dict(
+        model=type(cfg).__name__, n_experts=n_experts, batch=list(tokens.shape), remat=policy,
+        loss_chunk=cfg.loss_chunk, checks=checks, loss_tol=loss_tol, gnorm_tol=gnorm_tol,
+        launches_per_step=per_step, **out,
+        profile_one_step=profile_window(lambda: step(state, batch), 1),
+    )
+
+
+def launches_per_step(cfg, tokens, launches) -> tuple[str, dict]:
+    """The remat policy a training step runs and its kernel launches a
+    step, checked against ``launches`` over TIMED_STEPS steps. "mlp" keeps
+    the flash forward's residuals; under MoE it is "dots"
+    (ray_tpu/models/gpt2.py:334), and attention's forward runs again in
+    backward."""
+    policy = common.remat_policy(cfg, tokens)
+    assert policy == ("dots" if getattr(cfg, "n_experts", 0) else "mlp"), policy
+    per_step = {"flash_fwd": cfg.n_layer * (2 if policy in ("full", "dots") else 1),
+                "flash_bwd": cfg.n_layer}
+    assert launches == {k: n * TIMED_STEPS for k, n in per_step.items()}, launches
+    return policy, per_step
+
+
+def timed_steps(step, state, batch) -> dict:
+    """WARMUP_STEPS steps, then TIMED_STEPS on the host clock with the
+    launch counts zeroed just before and read just after; the losses (and
+    the MoE aux) of all of them must be finite and the loss must fall."""
+    step0 = state["step"]
+    metrics = [step(state, batch)[1] for _ in range(WARMUP_STEPS)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
     t0 = time.perf_counter()
-    for _ in range(TIMED_STEPS):
-        state, metrics = step(state, batch)
-        losses.append(metrics["loss"])
+    metrics += [step(state, batch)[1] for _ in range(TIMED_STEPS)]
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {"flash_fwd": attention.flash_fwd_launches,  # read just after
                 "flash_bwd": attention.flash_bwd_launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [x.item() for x in losses]
-
-    policy = common.remat_policy(cfg, tokens)
-    per_step = {"flash_fwd": cfg.n_layer * (2 if policy in ("full", "dots") else 1),
-                "flash_bwd": cfg.n_layer}
-    assert policy == "mlp", policy
-    assert launches == {k: n * TIMED_STEPS for k, n in per_step.items()}, launches
+    losses = [m["loss"].item() for m in metrics]
     assert all(math.isfinite(x) for x in losses), losses
     assert losses[-1] < losses[0], f"the loss did not fall: {losses}"
-    assert state["step"] == WARMUP_STEPS + TIMED_STEPS
-    return dict(
-        model=type(cfg).__name__, batch=list(tokens.shape), remat=policy,
-        loss_chunk=cfg.loss_chunk, checks=checks,
-        loss_tol=loss_tol, gnorm_tol=gnorm_tol, launches=launches, launches_per_step=per_step,
-        timed_steps=TIMED_STEPS, seconds=seconds, ms_per_step=1e3 * seconds / TIMED_STEPS,
-        tok_s=tokens.numel() * TIMED_STEPS / seconds, peak_mem_gb=peak_gb, losses=losses,
-        profile_one_step=profile_window(lambda: step(state, batch), 1),
+    assert state["step"] == step0 + WARMUP_STEPS + TIMED_STEPS
+    tokens = batch["tokens"].numel()
+    out = dict(launches=launches, timed_steps=TIMED_STEPS, seconds=seconds,
+               ms_per_step=1e3 * seconds / TIMED_STEPS, tok_s=tokens * TIMED_STEPS / seconds,
+               peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9, losses=losses)
+    if "moe_aux" in metrics[0]:
+        out["moe_aux"] = [m["moe_aux"].item() for m in metrics]
+    return out
+
+
+def routed_share(cfg, params, tokens) -> list[float]:
+    """Per MoE layer, the share of the batch's tokens that an expert served
+    (the rest were over capacity), from one forward without grad: the
+    router's per-expert counts, each capped at the capacity."""
+    shares, inner = [], gpt2._moe_sublayer
+
+    def counting(x, p, cfg, mesh):
+        h = gpt2._layer_norm(x, p["ln2_scale"], p["ln2_bias"]).reshape(-1, x.shape[-1])
+        probs = torch.softmax((h.to(cfg.dtype) @ p["gate_w"].to(cfg.dtype)).float(), dim=-1)
+        n = probs.shape[0]
+        cap = max(int(cfg.expert_capacity_factor * n / cfg.n_experts), 1)
+        counts = torch.bincount(probs.argmax(-1), minlength=cfg.n_experts)
+        shares.append(counts.clamp(max=cap).sum().item() / n)
+        return inner(x, p, cfg, mesh)
+
+    gpt2._moe_sublayer = counting
+    try:
+        with torch.no_grad():
+            gpt2.hidden(params, tokens, cfg)
+    finally:
+        gpt2._moe_sublayer = inner
+    assert len(shares) == cfg.n_layer and all(0.0 < s <= 1.0 for s in shares), shares
+    return shares
+
+
+# The mesh path: bench.py:110-131's call sequence on the port. At world
+# size 1 (one card) over NCCL, each sharded step must equal the unsharded
+# one exactly; with two cards, dp=2 (dense, global batch 2 x TRAIN_B) and
+# ep=2 (MoE, global batch TRAIN_B) run across them, held to the unsharded
+# step within the training tolerances.
+TWO_CARD_CASES = {"dp": (dict(dp=2), False, 2 * TRAIN_B), "ep": (dict(ep=2), True, TRAIN_B)}
+MESH_JOIN_S = 600
+
+
+def mesh_setup(cfg, mesh, opt, dev, generator, batch):
+    """bench.py's sequence: shardings from the logical rules, the state
+    sharded at creation, the step over the mesh with the batch split over
+    (dp, fsdp), and compile_train_step. Returns (step, state, shardings)."""
+    shardings = shardings_from_logical(gpt2.param_logical_specs(cfg), DEFAULT_RULES, mesh)
+    state = spmd.make_train_state(
+        functools.partial(gpt2.init_params, cfg=cfg, device=dev), opt, generator, device=dev,
+        param_shardings=shardings,
     )
+    step = spmd.make_train_step(
+        functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh), opt, mesh=mesh,
+        batch_spec=P(("dp", "fsdp")), param_shardings=shardings,
+    )
+    step, flops = spmd.compile_train_step(step, state, batch)
+    assert flops is None  # eager PyTorch has no cost model
+    return step, state, shardings
+
+
+def loss_and_norm(cfg, params, batch, shardings=None, mesh=None) -> dict:
+    """The gradient half of the step (make_grad_fn, global_norm) once:
+    the global cross-entropy, the gradients' global norm and the MoE aux."""
+    loss_fn = functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh)
+    spec = P(("dp", "fsdp")) if mesh is not None else None
+    metrics, grads = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=spec)(params, batch, shardings)
+    out = dict(loss=metrics["loss"].item(),
+               gnorm=spmd.global_norm(grads, shardings, mesh).item())
+    if "moe_aux" in metrics:
+        out["moe_aux"] = metrics["moe_aux"].item()
+    return out
+
+
+def mesh_batch(cfg, rows, dev) -> dict:
+    g = torch.Generator().manual_seed(1)  # on the CPU: the same batch on every card
+    tokens = torch.randint(0, cfg.vocab_size, (rows, cfg.max_seq), generator=g).to(dev)
+    return {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
+
+
+def mesh_exact(cfg, mesh, dev):
+    """Two steps of the sharded step at world size 1 against two of the
+    unsharded one from the same seed (the first at zero learning rate, the
+    second moving the params): losses, params and both moments equal.
+    Returns the record and (step, state, batch) of the sharded run."""
+    opt = spmd.default_optimizer(warmup_steps=2, total_steps=20)
+    batch = mesh_batch(cfg, TRAIN_B, dev)
+    step, state, _ = mesh_setup(
+        cfg, mesh, opt, dev, torch.Generator(device=dev).manual_seed(0), batch
+    )
+    ref = spmd.make_train_state(
+        functools.partial(gpt2.init_params, cfg=cfg, device=dev), opt,
+        torch.Generator(device=dev).manual_seed(0), device=dev,
+    )
+    ref_step = spmd.make_train_step(functools.partial(gpt2.loss_fn, cfg=cfg), opt)
+    init = [t.detach().clone() for t in spmd.tree_leaves(ref["params"])]
+    got = [step(state, batch)[1] for _ in range(2)]
+    want = [ref_step(ref, batch)[1] for _ in range(2)]
+    for g, w in zip(got, want):
+        assert g.keys() == w.keys() and all(torch.equal(g[k], w[k]) for k in g), (g, w)
+    for part in ("params", "mu", "nu"):
+        xs, ys = ((st["params"] if part == "params" else st["opt_state"][part]) for st in (state, ref))
+        assert all(torch.equal(x, y) for x, y in zip(spmd.tree_leaves(xs), spmd.tree_leaves(ys))), (
+            f"{part} differ after two steps")
+    moved = sum((x.detach() != y).sum().item() for x, y in zip(spmd.tree_leaves(state["params"]), init))
+    assert moved > 0, "the second step moved no param"
+    del ref, init
+    record = dict(n_experts=cfg.n_experts, mesh=mesh.spec.asdict(),
+                  batch=list(batch["tokens"].shape), losses=[m["loss"].item() for m in got],
+                  params_moved=moved, exact=True)
+    return record, (step, state, batch)
+
+
+def train_mesh(dev, tmp: str) -> dict:
+    """The mesh path on this card over NCCL at world size 1: one all-reduce
+    through the process group; GPT-2-125M (MeshSpec(dp=1)) and MoE GPT-2
+    (MeshSpec(ep=1)) each equal to the unsharded step exactly; then the
+    dense sharded step timed as train_path times its step, with the launch
+    counts zeroed just before and read just after. With two cards, the dp=2
+    and ep=2 cases across them."""
+    cuda = dev.type == "cuda"
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{Path(tmp) / 'store'}",
+                            world_size=1, rank=0, **(dict(device_id=dev) if cuda else {}))
+    try:
+        ones = torch.ones(4, device=dev)
+        dist.all_reduce(ones)
+        assert torch.equal(ones, torch.ones(4, device=dev)), ones
+        exact, timed = {}, None
+        for name, cfg, spec in (("gpt2_dp1", train_config(), MeshSpec(dp=1)),
+                                ("moe_ep1", moe_train_config(), MeshSpec(ep=1))):
+            exact[name], (step, state, batch) = mesh_exact(cfg, make_mesh(spec, dev.type), dev)
+            if timed is None:  # the dense sharded step, timed as train_path times its own
+                timed = timed_steps(step, state, batch)
+                timed["launches_per_step"] = launches_per_step(
+                    cfg, batch["tokens"], timed["launches"])[1]
+                timed["profile_one_step"] = profile_window(lambda: step(state, batch), 1)
+            del step, state, batch
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    if not cuda or torch.cuda.device_count() < 2:
+        log("train_mesh: the dp=2 and ep=2 cases need a second card; this machine has one")
+        two_card = "needs a second card"
+    else:
+        two_card = {name: two_card_case(name, "cuda", tmp) for name in TWO_CARD_CASES}
+    return dict(nccl_all_reduce_ok=True, exact=exact, timed=timed, launches=timed["launches"],
+                two_card=two_card)
+
+
+def two_card_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
+    """One of TWO_CARD_CASES across two ranks (one process each, on cards 0
+    and 1, or on the CPU over gloo), against the unsharded gradient half
+    of the step on card 0 from the same seed: loss and gradient norm
+    within the training tolerances. Each rank also takes one full step."""
+    spec, moe, rows = TWO_CARD_CASES[name]
+    cfg = cfg or (moe_train_config() if moe else train_config())
+    case = Path(tmp) / f"{name}.pkl"
+    with open(case, "wb") as f:
+        pickle.dump(dict(cfg=cfg, spec=spec, rows=rows, device_type=device_type), f)
+    store = Path(tmp) / f"{name}.store"
+    procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank", str(r), "2", str(store),
+                               str(case)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(2)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=MESH_JOIN_S)
+            assert proc.returncode == 0, f"{name} rank {r} exited {proc.returncode}:\n{err}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
+    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
+    params = spmd._tree_map(lambda t: t.requires_grad_(True), params)
+    want = loss_and_norm(cfg, params, mesh_batch(cfg, rows, dev))
+    for got in outs:
+        assert abs(got["loss"] - want["loss"]) <= TRAIN_LOSS_TOL, (name, got, want)
+        assert abs(got["gnorm"] - want["gnorm"]) / want["gnorm"] <= TRAIN_GNORM_TOL, (name, got, want)
+    return dict(mesh=spec, batch=[rows, cfg.max_seq], ranks=outs, unsharded=want)
+
+
+def mesh_rank(rank: int, world: int, store: str, case_path: str) -> None:
+    """One rank of a two-card case (run as ``chip_smoke.py --mesh-rank``):
+    prints its loss, gradient norm and step loss as one JSON line."""
+    with open(case_path, "rb") as f:
+        case = pickle.load(f)
+    cfg, cuda = case["cfg"], case["device_type"] == "cuda"
+    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
+    if cuda:
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{store}",
+                            world_size=world, rank=rank)
+    try:
+        mesh = make_mesh(MeshSpec(**case["spec"]), case["device_type"])
+        opt = spmd.default_optimizer(warmup_steps=2, total_steps=20)
+        # Every rank draws the whole tree on the CPU from one seed.
+        batch = mesh_batch(cfg, case["rows"], dev)
+        step, state, shardings = mesh_setup(
+            cfg, mesh, opt, dev, torch.Generator().manual_seed(0), batch
+        )
+        out = loss_and_norm(cfg, state["params"], batch, shardings, mesh)
+        out["step_loss"] = step(state, batch)[1]["loss"].item()
+        out["coords"] = {a: mesh.coordinate(a) for a in mesh.axis_names if mesh.size(a) > 1}
+        print(json.dumps(out), flush=True)
+    finally:
+        dist.destroy_process_group()
 
 
 # Speculative decoding: the arms of each cache, in order. The vanilla arm
@@ -1255,6 +1514,16 @@ def main() -> int:
     train_llama = train_path(dev, llama_train_config())
     print(json.dumps({"train": train_llama}), flush=True)
     torch.cuda.empty_cache()
+    train_moe = train_path(dev, moe_train_config())
+    print(json.dumps({"train_moe": train_moe}), flush=True)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        mesh_run = train_mesh(dev, tmp)
+    mesh_run["timed"]["vs_train_device_ms"] = (
+        mesh_run["timed"]["profile_one_step"]["device_ms"] / train["profile_one_step"]["device_ms"]
+    )
+    print(json.dumps({"train_mesh": mesh_run}), flush=True)
+    torch.cuda.empty_cache()
 
     spec_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1271,6 +1540,8 @@ def main() -> int:
                        {**{k: f for k, (f, _) in serve_launches.items()},
                         "train": train["launches"]["flash_fwd"],
                         "train_llama": train_llama["launches"]["flash_fwd"],
+                        "train_moe": train_moe["launches"]["flash_fwd"],
+                        "train_mesh": mesh_run["launches"]["flash_fwd"],
                         **{k: f for k, (f, _) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
@@ -1278,6 +1549,8 @@ def main() -> int:
                        {**{k: b for k, (_, b) in serve_launches.items()},
                         "train": train["launches"]["flash_bwd"],
                         "train_llama": train_llama["launches"]["flash_bwd"],
+                        "train_moe": train_moe["launches"]["flash_bwd"],
+                        "train_mesh": mesh_run["launches"]["flash_bwd"],
                         **{k: b for k, (_, b) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
@@ -1292,4 +1565,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of a two-card case, started by two_card_case
+        mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
     sys.exit(main())

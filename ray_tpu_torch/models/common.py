@@ -110,7 +110,8 @@ def _dots_context():
 
 def remat_policy(cfg, x: torch.Tensor) -> str:
     """The policy a model's ``hidden`` applies to activations like ``x``:
-    ``cfg.remat`` with bools resolved, and "mlp" turned into "dots" where
+    ``cfg.remat`` with bools resolved, and "mlp" turned into "dots" under
+    mixture-of-experts (``ray_tpu/models/gpt2.py:334-335``) and where
     attention does not run the flash kernel (the plain path has no saved
     residuals to keep, and would hold the S x S probabilities of every
     layer), as at ``ray_tpu/models/gpt2.py:339-352`` and
@@ -118,6 +119,8 @@ def remat_policy(cfg, x: torch.Tensor) -> str:
     remat = {True: "full", False: "none"}.get(cfg.remat, cfg.remat)
     if remat not in ("full", "dots", "mlp", "none"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if remat == "mlp" and getattr(cfg, "n_experts", 0) > 0:
+        remat = "dots"  # the "mlp" policy checkpoints the DENSE sublayer
     if remat == "mlp" and not uses_flash_kernel(x, impl=cfg.attn_impl):
         remat = "dots"
     return remat

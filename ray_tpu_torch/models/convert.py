@@ -27,6 +27,17 @@ def _tensor(arr, device) -> torch.Tensor:
 
 def _gpt2_expected_shapes(cfg: GPT2Config) -> dict:
     L, D, F_, V, S = cfg.n_layer, cfg.d_model, cfg.d_ff, cfg.vocab_size, cfg.max_seq
+    E = cfg.n_experts
+    if E > 0:
+        ffn = {
+            "gate_w": (L, D, E),
+            "exp_w1": (L, E, D, F_),
+            "exp_b1": (L, E, F_),
+            "exp_w2": (L, E, F_, D),
+            "exp_b2": (L, D),
+        }
+    else:
+        ffn = {"fc_w": (L, D, F_), "fc_b": (L, F_), "fc2_w": (L, F_, D), "fc2_b": (L, D)}
     return {
         "wte": (V, D),
         "wpe": (S, D),
@@ -41,10 +52,7 @@ def _gpt2_expected_shapes(cfg: GPT2Config) -> dict:
             "proj_b": (L, D),
             "ln2_scale": (L, D),
             "ln2_bias": (L, D),
-            "fc_w": (L, D, F_),
-            "fc_b": (L, F_),
-            "fc2_w": (L, F_, D),
-            "fc2_b": (L, D),
+            **ffn,
         },
     }
 
@@ -92,12 +100,11 @@ def _from_numpy(tree: dict, spec: dict, device) -> dict:
 
 
 def gpt2_params_from_numpy(tree: dict, cfg: GPT2Config, device="cuda") -> dict:
-    """The reference's dense GPT-2 params (numpy leaves) as torch tensors
-    on ``device`` (the card unless the caller asks for ``"cpu"``; a CUDA
-    request with no GPU raises), key for key and in their own dtype. Raises
-    on a missing or extra key or a shape that ``cfg`` does not expect."""
-    if "gate_w" in tree.get("blocks", {}):
-        raise NotImplementedError("mixture-of-experts GPT-2 is not ported yet")
+    """The reference's GPT-2 params (numpy leaves; dense, or mixture-of-
+    experts when ``cfg.n_experts > 0``) as torch tensors on ``device`` (the
+    card unless the caller asks for ``"cpu"``; a CUDA request with no GPU
+    raises), key for key and in their own dtype. Raises on a missing or
+    extra key or a shape that ``cfg`` does not expect."""
     return _from_numpy(tree, _gpt2_expected_shapes(cfg), device)
 
 

@@ -16,8 +16,9 @@ is repeated for its group of query heads before the attention kernel (in
 training, autograd sums the expanded K/V's gradients over each group).
 
 Training runs the remat policies and the next-token loss that GPT-2 runs
-(:mod:`ray_tpu_torch.models.common`). Not ported yet: the sp/pp meshes
-(ring attention, the pipeline), which raise.
+(:mod:`ray_tpu_torch.models.common`). Under a mesh it runs the dp and ep
+axes; the others (ring attention over sp, the pipeline over pp, fsdp, tp)
+raise.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ray_tpu_torch.models.common import (
 )
 from ray_tpu_torch.models.gpt2 import layer_params  # the same stacked layout
 from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.parallel.mesh import check_ported_axes
 from ray_tpu_torch.util.device import resolve_device
 
 Params = dict
@@ -101,6 +103,27 @@ class LlamaConfig:
 # Leaves the reference casts to the activation dtype at each use; the norm
 # scales stay in f32.
 MATMUL_LEAVES = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
+def param_logical_specs(cfg: LlamaConfig) -> Params:
+    """Logical axis names per parameter (leaves are tuples of names)."""
+    L = ("layers",)
+    return {
+        "wte": ("vocab", "embed"),
+        "blocks": {
+            "attn_norm": L + ("norm",),
+            "wq": L + ("embed", "mlp"),
+            "wk": L + ("embed", "kv"),
+            "wv": L + ("embed", "kv"),
+            "wo": L + ("mlp", "embed"),
+            "mlp_norm": L + ("norm",),
+            "w_gate": L + ("embed", "mlp"),
+            "w_up": L + ("embed", "mlp"),
+            "w_down": L + ("mlp", "embed"),
+        },
+        "final_norm": ("norm",),
+        "lm_head": ("embed", "vocab"),
+    }
 
 
 def init_params(
@@ -229,13 +252,11 @@ def hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) ->
 
     With grad enabled each block runs under ``cfg.remat``
     (:func:`~ray_tpu_torch.models.common.remat_policy`); without it, as it
-    is. ``mesh`` is the reference's: an ``sp`` or ``pp`` axis selects ring
-    attention or the pipeline there. Neither is ported, so any mesh
-    raises."""
+    is. ``mesh`` is the reference's: the dp and ep axes need nothing of the
+    model, and a mesh with another axis above 1 (``sp``: ring attention,
+    ``pp``: the pipeline, ``fsdp``, ``tp``) raises."""
     if mesh is not None:
-        raise NotImplementedError(
-            "sharded Llama (ring attention over sp, pipeline over pp) is not ported yet"
-        )
+        check_ported_axes(mesh)
     S = tokens.shape[1]
     x = params["wte"].to(cfg.dtype)[tokens]
     cos, sin = rope_tables(cfg, S, tokens.device)

@@ -1,0 +1,54 @@
+"""Parallelism primitives: device meshes and logical sharding rules. Port of
+``ray_tpu/parallel``.
+
+Every axis (dp / fsdp / tp / sp / pp / ep) is a named axis of one
+``DeviceMesh``; parameters are placed by logical rules, each rank holding its
+local shard, and collectives are explicit ``torch.distributed`` calls. The
+port runs ``dp`` and ``ep``; the reference's ``constrain`` is not ported.
+"""
+
+from ray_tpu_torch.parallel.mesh import (
+    AXIS_NAMES,
+    Mesh,
+    MeshSpec,
+    auto_spec,
+    check_ported_axes,
+    local_mesh,
+    make_mesh,
+)
+from ray_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    LogicalRules,
+    NamedSharding,
+    P,
+    PartitionSpec,
+    all_gather,
+    all_reduce,
+    grad_all_reduce,
+    logical_to_mesh_spec,
+    named_sharding,
+    shard_tree,
+    shardings_from_logical,
+)
+
+__all__ = [
+    "MeshSpec",
+    "Mesh",
+    "AXIS_NAMES",
+    "make_mesh",
+    "auto_spec",
+    "local_mesh",
+    "check_ported_axes",
+    "LogicalRules",
+    "DEFAULT_RULES",
+    "PartitionSpec",
+    "P",
+    "NamedSharding",
+    "logical_to_mesh_spec",
+    "named_sharding",
+    "shardings_from_logical",
+    "shard_tree",
+    "all_gather",
+    "all_reduce",
+    "grad_all_reduce",
+]

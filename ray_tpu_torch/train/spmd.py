@@ -1,13 +1,20 @@
-"""The training step on one GPU. Port of ``ray_tpu/train/spmd.py``.
+"""The training step, on one GPU or over a mesh. Port of ``ray_tpu/train/spmd.py``.
 
 The reference jits ``step(state, batch)`` with the state donated, over a
-mesh with sharded params. This port runs eagerly on one device: forward,
-backward (``torch.autograd.grad``), global-norm clipping and AdamW, then
-``step + 1``. The state is updated **in place**, the counterpart of
-donation: params and optimizer moments are never held twice.
+mesh with sharded params, and XLA inserts the collectives. This port runs
+eagerly: forward, backward (``torch.autograd.grad``), global-norm clipping
+and AdamW, then ``step + 1``. The state is updated **in place**, the
+counterpart of donation: params and optimizer moments are never held twice.
 
-Not ported yet: ``state_shardings``, ``compile_train_step``, meshes and
-batch/param shardings (data parallelism, FSDP).
+Over a mesh (:mod:`ray_tpu_torch.parallel`; the dp and ep axes) each rank
+holds the local shard of each leaf that its sharding gives, takes its rows
+of the global batch, and runs the collectives itself: gradients of leaves
+replicated over dp are averaged over dp, the global norm sums each shard's
+squares once, and the metrics are the global ones. The result is the
+reference's global-view step.
+
+Not ported: a compiled step. ``compile_train_step`` returns the step as it
+is, with no flop count.
 """
 
 from __future__ import annotations
@@ -17,12 +24,15 @@ import math
 from typing import Any, Callable
 
 import torch
+import torch.distributed as dist
 
+from ray_tpu_torch.parallel.mesh import Mesh, check_ported_axes
+from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec, shard_tree
 from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
 
-# TrainState is a plain dict: {"params", "opt_state", "step"}. "step" and
-# the optimizer's "count" are host ints, so the schedule needs no device
-# readback.
+# TrainState is a plain dict: {"params", "opt_state", "step", "shardings"}.
+# "step" and the optimizer's "count" are host ints, so the schedule needs
+# no device readback; "shardings" is the params' sharding tree, or None.
 TrainState = dict
 
 _EPS = 1e-8  # Adam's epsilon, outside the square root (optax.adamw's default)
@@ -82,12 +92,17 @@ class AdamW:
         }
 
     @torch.no_grad()
-    def update_(self, grads: list, opt_state: dict, params: list) -> None:
+    def update_(
+        self, grads: list, opt_state: dict, params: list, norm: torch.Tensor | None = None
+    ) -> None:
         """Apply one update to ``params`` (leaves in :func:`tree_leaves`
-        order) and ``opt_state``, in place."""
+        order) and ``opt_state``, in place. ``norm`` is the gradients'
+        global norm, where the caller has it from sharded leaves; by
+        default, that of ``grads``."""
         lr = self.schedule(opt_state["count"])
         count = opt_state["count"] + 1
-        norm = torch.stack([g.square().sum() for g in grads]).sum().sqrt()
+        if norm is None:
+            norm = global_norm(grads, None, None)
         keep = norm < self.grad_clip
         bc1, bc2 = 1.0 - self.b1**count, 1.0 - self.b2**count
         moments = zip(tree_leaves(opt_state["mu"]), tree_leaves(opt_state["nu"]))
@@ -119,36 +134,162 @@ def make_train_state(
     optimizer: AdamW,
     generator: torch.Generator,
     device: "str | torch.device" = "cuda",
+    *,
+    param_shardings: Any | None = None,
 ) -> TrainState:
     """Params from ``init_params_fn(generator)`` on ``device`` (the card
     unless the caller asks for ``"cpu"``), as leaves that require grad, and
     the optimizer's zeroed state beside them. Sets the process's matmul
-    precision as the engine does (:func:`set_exact_matmul`)."""
+    precision as the engine does (:func:`set_exact_matmul`).
+
+    With ``param_shardings`` (a tree of
+    :class:`~ray_tpu_torch.parallel.NamedSharding`) every rank draws the
+    whole tree from the same generator and keeps its own shard of each
+    leaf, so the values equal the unsharded ones. The state keeps the
+    shardings under ``"shardings"`` (None when unsharded)."""
     device = resolve_device(device)
     set_exact_matmul()
-    params = _tree_map(
-        lambda t: t.detach().to(device).requires_grad_(True), init_params_fn(generator)
-    )
-    return {"params": params, "opt_state": optimizer.init(params), "step": 0}
+    params = _tree_map(lambda t: t.detach().to(device), init_params_fn(generator))
+    if param_shardings is not None:
+        params = shard_tree(params, param_shardings)
+    params = _tree_map(lambda t: t.requires_grad_(True), params)
+    return {
+        "params": params,
+        "opt_state": optimizer.init(params),
+        "step": 0,
+        "shardings": param_shardings,
+    }
+
+
+def state_shardings(state: TrainState) -> dict:
+    """The sharding of every leaf of a live state, in its layout (for a
+    checkpoint restored onto the same mesh): each param and its two
+    moments share one; the host-int counters have none (None), and so has
+    every leaf of an unsharded state."""
+    params = state["params"]
+    shardings = state["shardings"] or _tree_map(lambda _: None, params)
+    return {
+        "params": shardings,
+        "opt_state": {"count": None, "mu": shardings, "nu": shardings},
+        "step": None,
+    }
+
+
+def _leaf_axes(shardings: Any, n_leaves: int) -> list[frozenset]:
+    """The mesh axes each leaf (in :func:`tree_leaves` order) is split over."""
+    if shardings is None:
+        return [frozenset()] * n_leaves
+    return [s.axes for s in tree_leaves(shardings)]
+
+
+def make_grad_fn(
+    loss_fn: Callable[[dict, Any], tuple[torch.Tensor, dict]],
+    *,
+    mesh: Mesh | None = None,
+    batch_spec: PartitionSpec | None = None,
+) -> Callable[[dict, Any, Any], tuple[dict, list]]:
+    """The gradient half of the step: ``fn(params, batch, shardings) ->
+    (metrics, grads)``, grads in :func:`tree_leaves` order.
+
+    Over a mesh, this rank takes its block of every batch leaf under
+    ``batch_spec`` (by default the batch dim over ``MeshSpec.batch_axes``,
+    dp major, as the reference's ``P(("dp", "fsdp"))``), so ``loss_fn``'s
+    mean is over its own rows, and the mean of the ranks' losses is the
+    global one. Gradients of leaves that ``shardings`` does not split over
+    dp are averaged over dp. ``metrics["loss"]`` becomes the global mean
+    and ``metrics["tokens"]`` the global count; other metrics (``moe_aux``)
+    are global already."""
+    if mesh is not None:
+        check_ported_axes(mesh)
+        batch_sharding = NamedSharding(
+            mesh, batch_spec if batch_spec is not None else PartitionSpec(mesh.spec.batch_axes)
+        )
+    dp = mesh.size("dp") if mesh is not None else 1
+
+    def grad_fn(params: dict, batch: Any, shardings: Any) -> tuple[dict, list]:
+        if mesh is not None:
+            batch = {k: batch_sharding.shard(v) for k, v in batch.items()}
+        leaves = tree_leaves(params)
+        loss, metrics = loss_fn(params, batch)
+        grads = list(torch.autograd.grad(loss, leaves))
+        if dp == 1:
+            return metrics, grads
+        group = mesh.group("dp")
+        for i, axes in enumerate(_leaf_axes(shardings, len(grads))):
+            if "dp" not in axes:
+                grads[i] = grads[i].contiguous()  # a collective takes a dense buffer
+                dist.all_reduce(grads[i], group=group)
+                grads[i].div_(dp)
+        metrics = dict(metrics)
+        loss_sum = metrics["loss"].clone()
+        dist.all_reduce(loss_sum, group=group)
+        metrics["loss"] = loss_sum / dp
+        metrics["tokens"] = metrics["tokens"] * dp
+        return metrics, grads
+
+    return grad_fn
+
+
+def global_norm(grads: list, shardings: Any, mesh: Mesh | None) -> torch.Tensor:
+    """The global norm of a tree of gradients held as local shards: the
+    squares of a replicated leaf count once, and those of a leaf split over
+    ep are summed over ep. Every rank gets the same value."""
+    axes = _leaf_axes(shardings, len(grads))
+    whole = [g.square().sum() for g, a in zip(grads, axes) if "ep" not in a]
+    split = [g.square().sum() for g, a in zip(grads, axes) if "ep" in a]
+    total = torch.stack(whole).sum()
+    if split:
+        part = torch.stack(split).sum()
+        dist.all_reduce(part, group=mesh.group("ep"))
+        total = total + part
+    return total.sqrt()
 
 
 def make_train_step(
     loss_fn: Callable[[dict, Any], tuple[torch.Tensor, dict]],
     optimizer: AdamW,
+    *,
+    mesh: Mesh | None = None,
+    batch_spec: PartitionSpec | None = None,
+    param_shardings: Any | None = None,
+    donate_batch: bool = False,
+    donate_state: bool = True,
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """Build ``step(state, batch) -> (state, metrics)``.
 
-    ``loss_fn(params, batch)`` returns ``(scalar_loss, metrics)``. The step
-    updates ``state`` in place and returns it with ``loss_fn``'s metrics,
-    which stay on the device: nothing in the step waits for the card.
-    """
+    ``loss_fn(params, batch)`` returns ``(scalar_loss, metrics)``; a
+    mixture-of-experts model under a mesh takes the mesh itself
+    (``functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh)``). The step
+    updates ``state`` in place and returns it with the metrics, which stay
+    on the device: nothing in the step waits for the card.
+
+    ``mesh`` (dp and ep; another axis above 1 raises): ``batch`` is the
+    **global** batch, as the reference's jitted step takes it; see
+    :func:`make_grad_fn` for the rows each rank takes and the averages.
+    ``param_shardings`` is the tree the state was made with (by default
+    ``state["shardings"]``). The donation flags are the reference's and
+    change nothing: the state is always updated in place, and the batch
+    is never written."""
+    del donate_batch, donate_state
+    grad_fn = make_grad_fn(loss_fn, mesh=mesh, batch_spec=batch_spec)
 
     def step(state: TrainState, batch: Any) -> tuple[TrainState, dict]:
-        leaves = tree_leaves(state["params"])
-        loss, metrics = loss_fn(state["params"], batch)
-        grads = torch.autograd.grad(loss, leaves)
-        optimizer.update_(grads, state["opt_state"], leaves)
+        shardings = param_shardings if param_shardings is not None else state["shardings"]
+        metrics, grads = grad_fn(state["params"], batch, shardings)
+        norm = global_norm(grads, shardings, mesh)
+        optimizer.update_(grads, state["opt_state"], tree_leaves(state["params"]), norm=norm)
         state["step"] += 1
         return state, metrics
 
     return step
+
+
+def compile_train_step(
+    step: Callable, state: TrainState, batch: Any
+) -> tuple[Callable, float | None]:
+    """The reference AOT-compiles the jitted step for these shapes and reads
+    its flop count from the executable's cost model. Eager PyTorch has
+    neither: this returns ``(step, None)``, the reference's own answer
+    where the backend reports no cost model."""
+    del state, batch
+    return step, None

@@ -21,6 +21,7 @@ from ray_tpu.models import gpt2_decode as jdec
 from ray_tpu_torch.models import gpt2 as pgpt2
 from ray_tpu_torch.models import gpt2_decode as pdec
 from ray_tpu_torch.models.convert import gpt2_params_from_numpy
+from ray_tpu_torch.parallel import Mesh, MeshSpec
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 SHAPE = dict(n_layer=2, d_model=64, n_head=2, vocab_size=512, max_seq=64)
@@ -149,16 +150,23 @@ def test_convert_bf16_tree_bit_exact_and_compute_params(models):
 
 
 def test_unported_variants_raise(models):
+    """What the port does not run yet raises: the GPipe pipeline
+    (``pipeline_microbatches``) and a mesh with an fsdp, tp, sp or pp axis
+    above 1, which is named. MoE and the dp and ep axes are ported."""
     _, _, pcfg, pparams = models
     toks = torch.zeros((1, 4), dtype=torch.long)
-    for cfg in (dataclasses.replace(pcfg, n_experts=2),
-                dataclasses.replace(pcfg, pipeline_microbatches=2)):
-        with pytest.raises(NotImplementedError):
-            pgpt2.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-        with pytest.raises(NotImplementedError):
-            pgpt2.forward(pparams, toks, cfg)
+    cfg = dataclasses.replace(pcfg, pipeline_microbatches=2)
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        pgpt2.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="pipeline"):
+        pgpt2.forward(pparams, toks, cfg)
+    for axis in ("fsdp", "tp", "sp", "pp"):
+        with pytest.raises(NotImplementedError, match=f"{axis}=2"):
+            pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(**{axis: 2})))
     with pytest.raises(NotImplementedError, match="ring attention"):
         pgpt2.forward(pparams, toks, pcfg, mesh=object())
+    want = pgpt2.forward(pparams, toks, pcfg)
+    assert torch.equal(pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(dp=2, ep=2))), want)
 
 
 def test_entry_points_default_to_the_card(models):

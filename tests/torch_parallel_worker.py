@@ -1,0 +1,139 @@
+"""One rank of ``tests/test_torch_parallel.py``'s gloo runs (not a test file).
+
+    python tests/torch_parallel_worker.py RANK WORLD STORE CASES OUT
+
+Starts a gloo process group of WORLD ranks from the ``file://`` STORE, runs
+every case of the pickle CASES through the port (imports no jax: the JAX
+side runs in the test's own process), and pickles this rank's results to
+``OUT/rank{RANK}.pkl``. A case is a dict:
+
+- ``name``, ``mesh`` (``MeshSpec`` fields) and ``kind``:
+  ``"steps"`` (``make_train_step`` for ``steps`` steps; the losses, aux and
+  params after), ``"grads"`` (``make_grad_fn`` once; metrics and grads) or
+  ``"raises"`` (each unported axis at size WORLD must raise in the step
+  and in both models' ``hidden``) or ``"mismatch"`` (a mesh for another
+  number of devices must raise);
+- for the first two, ``family`` (``"gpt2"`` or ``"llama"``), ``cfg`` (config
+  fields; f32 activations), ``tree`` and ``batch`` (numpy) and ``opt``
+  (``default_optimizer`` arguments).
+"""
+
+import functools
+import pickle
+import sys
+import traceback
+from pathlib import Path
+
+import torch
+import torch.distributed as dist
+
+from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models.convert import gpt2_params_from_numpy, llama_params_from_numpy
+from ray_tpu_torch.parallel import (
+    DEFAULT_RULES,
+    MeshSpec,
+    P,
+    make_mesh,
+    shardings_from_logical,
+)
+from ray_tpu_torch.train import spmd
+
+FAMILIES = {
+    "gpt2": (gpt2, gpt2.GPT2Config, gpt2_params_from_numpy),
+    "llama": (llama, llama.LlamaConfig, llama_params_from_numpy),
+}
+
+
+def _numpy(tensors):
+    return [t.detach().numpy().copy() for t in tensors]
+
+
+def run_case(case: dict) -> dict:
+    if case["kind"] == "mismatch":  # a MeshSpec for another number of devices
+        try:
+            make_mesh(MeshSpec(**case["mesh"]), "cpu")
+        except ValueError as e:
+            return dict(message=str(e))
+        return dict(message=None)
+    mesh = make_mesh(MeshSpec(**case["mesh"]), "cpu")
+    coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
+    if case["kind"] == "raises":
+        return dict(coords=coords, messages=raises(mesh))
+    model, config, convert = FAMILIES[case["family"]]
+    cfg = config(**case["cfg"], dtype=torch.float32)
+    # bench.py's call sequence, on the port.
+    shardings = shardings_from_logical(model.param_logical_specs(cfg), DEFAULT_RULES, mesh)
+    opt = spmd.default_optimizer(**case["opt"])
+    state = spmd.make_train_state(
+        lambda _: convert(case["tree"], cfg, "cpu"), opt, torch.Generator(), "cpu",
+        param_shardings=shardings,
+    )
+    loss_fn = functools.partial(model.loss_fn, cfg=cfg, mesh=mesh)
+    batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
+    out = dict(coords=coords, specs=[tuple(s.spec) for s in spmd.tree_leaves(shardings)])
+    if case["kind"] == "grads":
+        metrics, grads = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=P(("dp", "fsdp")))(
+            state["params"], batch, shardings
+        )
+        out.update(metrics={k: v.item() for k, v in metrics.items()}, grads=_numpy(grads))
+        return out
+    step = spmd.make_train_step(
+        loss_fn, opt, mesh=mesh, batch_spec=P(("dp", "fsdp")), param_shardings=shardings
+    )
+    step, flops = spmd.compile_train_step(step, state, batch)
+    assert flops is None
+    metrics = []
+    for _ in range(case["steps"]):
+        state, m = step(state, batch)
+        metrics.append({k: v.item() for k, v in m.items()})
+    assert state["step"] == case["steps"]
+    out.update(metrics=metrics, params=_numpy(spmd.tree_leaves(state["params"])))
+    return out
+
+
+def raises(mesh) -> dict:
+    """The message each unported axis raises with, from the step and from
+    both models' ``hidden``; the caller checks each names the axis."""
+    got = {}
+    gcfg = gpt2.GPT2Config.tiny(n_layer=1, d_model=64, n_head=2, vocab_size=64, max_seq=16)
+    lcfg = llama.LlamaConfig.tiny(n_layer=1, d_model=64, n_head=2, n_kv_head=1, vocab_size=64,
+                                  max_seq=16)
+    toks = torch.zeros((1, 4), dtype=torch.long)
+    calls = {
+        "make_train_step": lambda: spmd.make_train_step(
+            gpt2.loss_fn, spmd.default_optimizer(), mesh=mesh),
+        "gpt2.hidden": lambda: gpt2.hidden(
+            gpt2.init_params(torch.Generator(), gcfg, "cpu"), toks, gcfg, mesh),
+        "llama.hidden": lambda: llama.hidden(
+            llama.init_params(torch.Generator(), lcfg, "cpu"), toks, lcfg, mesh),
+    }
+    for name, call in calls.items():
+        try:
+            call()
+        except NotImplementedError as e:
+            got[name] = str(e)
+        else:
+            got[name] = None
+    return got
+
+
+def main(rank: int, world: int, store: str, cases_path: str, out_dir: str) -> None:
+    torch.manual_seed(0)
+    dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
+    try:
+        with open(cases_path, "rb") as f:
+            cases = pickle.load(f)
+        results = {c["name"]: run_case(c) for c in cases}
+        with open(Path(out_dir) / f"rank{rank}.pkl", "wb") as f:
+            pickle.dump(results, f)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    try:
+        rank, world, store, cases_path, out_dir = sys.argv[1:]
+        main(int(rank), int(world), store, cases_path, out_dir)
+    except BaseException:
+        traceback.print_exc()
+        sys.exit(1)
