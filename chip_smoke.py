@@ -47,8 +47,10 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    traffic with ``metrics_enabled`` and ``flightrec`` off, then on, three
    rounds in turn on one engine, each timed on the host clock and then
    profiled over 24 decode steps. The greedy streams must be identical
-   between the arms and the decode device time may move by at most 3 %;
-   printed as one ``{"telemetry_ab": ...}`` line.
+   between the arms and the decode device time other than the copies
+   (the logits readback to pageable memory, whose recorded time follows
+   the host) may move by at most 3 %; printed as one
+   ``{"telemetry_ab": ...}`` line.
 8. Batch inference: ``build_llm_processor`` on GPT-2-125M (the default
    config) takes one batch of 4 prompts twice; the second call must reuse
    the cached engine, and the texts must equal that engine's
@@ -77,12 +79,23 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    all-reduce through the group; GPT-2-125M under ``MeshSpec(dp=1)`` and
    MoE GPT-2 under ``MeshSpec(ep=1)``, each two steps equal to the
    unsharded step's bit for bit (losses, params, moments); then the dense
-   sharded step timed as in phase 9 (12 + 12 launches a step). With two
-   or more cards it also runs ``dp=2`` (dense) and ``ep=2`` (MoE) across
-   two of them, one process each (this script with ``--mesh-rank``),
-   held to the unsharded step within the training tolerances; with one
-   card it says that these need a second card.
-13. Speculative decoding with a GPT-2-125M target, in the reference's own
+   sharded step timed as in phase 9 (12 + 12 launches a step).
+13. Sharded steps (``train_shard``), the same call sequence over several
+   rank processes (this script with ``--mesh-rank``), at full width:
+   GPT-2-125M under ``MeshSpec(tp=2)``, Llama-125M under
+   ``MeshSpec(fsdp=2, tp=2)`` and MoE GPT-2 under ``MeshSpec(tp=2)`` (global
+   batch [8, 1024] each), then GPT-2-125M under ``dp=2`` (batch [16,
+   1024]) and MoE under ``ep=2``. With a card for every rank the ranks run
+   over NCCL, one a card; with fewer (one H100), all on card 0 over a
+   gloo group, which takes the CUDA tensors of every collective and
+   stages them through host memory (printed as each rank's
+   ``"transport"``). Each rank's loss and gradient norm are held to the
+   unsharded step's on card 0 within the training tolerances; each rank
+   then takes one full step with the launch counts zeroed just before
+   and read just after (12 + 12, MoE 24 + 12), and prints its peak memory
+   and the size of its state beside the unsharded step's. Ranks that
+   share one card are not speed evidence.
+14. Speculative decoding with a GPT-2-125M target, in the reference's own
    spec-decoding probe shape (4 slots, 1024 positions, 3 greedy streams of
    200 tokens after a warm-up request, k=4), on the dense cache (``spec``)
    and the paged one (``spec_paged``). Three arms each: vanilla, a 1-layer
@@ -170,8 +183,10 @@ KERNELS = ("flash_fwd", "flash_bwd")
 # Telemetry A/B: alternating rounds of each arm, decode steps profiled per
 # round, and the most the decode device time may move between the arms.
 # A round's profiled window spans 24 of the 31 decode steps a request of
-# MAX_TOKENS has: the device time includes the logits readback to pageable
-# memory, whose duration follows the host (a round of 8 steps spread 2-3 %).
+# MAX_TOKENS has. The check holds the device time of everything but the
+# copies: the logits readback to pageable memory is staged through the
+# host, and its recorded duration follows the host (3.9 to 9.2 ms in a
+# window whose other device time held within 1 %).
 AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 3, 24, 0.03
 BATCH_PROMPTS = ["The quick brown fox", "Hello, world", "ray_tpu on the H100", "batch inference"]
 
@@ -844,8 +859,9 @@ def telemetry_ab(engine, per_layer: int) -> dict:
     round sees the same pool and runs the same prefills). Each round
     times the traffic on the host clock, then runs it again and profiles
     AB_DECODE_STEPS decode steps at 6 active slots. The greedy streams must
-    be identical between arms and the decode device time may move by no
-    more than AB_DEVICE_TOL."""
+    be identical between arms and the decode device time other than the
+    copies (``compute_ms``) may move by no more than AB_DEVICE_TOL; the
+    whole device time is printed beside it."""
     prompts = traffic(engine, np.random.default_rng(2))
     sampling = SamplingParams(max_tokens=MAX_TOKENS)
 
@@ -870,6 +886,7 @@ def telemetry_ab(engine, per_layer: int) -> dict:
             host_ms_per_step=1e3 * timed["decode_s"] / timed["decode_steps"],
             device_ms=prof["device_ms"], profiled_wall_ms=prof["wall_ms"],
             memcpy_ms=prof["device_ms_by_kind"].get("memcpy", {}).get("ms", 0.0),
+            compute_ms=prof["device_ms"] - prof["device_ms_by_kind"].get("memcpy", {}).get("ms", 0.0),
         )
 
     one_round("ab-warm", True)
@@ -886,12 +903,13 @@ def telemetry_ab(engine, per_layer: int) -> dict:
     arms = {}
     for arm, rs in (("off", rounds[0::2]), ("on", rounds[1::2])):
         arms[arm] = {k: [r[k] for r in rs] for k in ("decode_tok_s", "host_ms_per_step", "device_ms",
-                                                    "profiled_wall_ms", "memcpy_ms")}
+                                                    "profiled_wall_ms", "memcpy_ms", "compute_ms")}
         arms[arm].update({f"median_{k}": median(v) for k, v in list(arms[arm].items())})
-    moved = arms["on"]["median_device_ms"] / arms["off"]["median_device_ms"] - 1.0
+    moved = arms["on"]["median_compute_ms"] / arms["off"]["median_compute_ms"] - 1.0
     assert abs(moved) <= AB_DEVICE_TOL, f"A/B: decode device time moved {moved:+.4f}"
     return dict(rounds=AB_ROUNDS, order="off,on alternating", decode_steps_profiled=AB_DECODE_STEPS,
-                arms=arms, device_ms_moved=moved, device_tol=AB_DEVICE_TOL,
+                arms=arms, compute_ms_moved=moved, device_tol=AB_DEVICE_TOL,
+                device_ms_moved=arms["on"]["median_device_ms"] / arms["off"]["median_device_ms"] - 1.0,
                 host_ms_per_step_on_over_off=arms["on"]["median_host_ms_per_step"]
                 / arms["off"]["median_host_ms_per_step"],
                 streams_identical=True, launches=launches, bwd_launches=bwd_launches,
@@ -1102,24 +1120,36 @@ def routed_share(cfg, params, tokens) -> list[float]:
 
 # The mesh path: bench.py:110-131's call sequence on the port. At world
 # size 1 (one card) over NCCL, each sharded step must equal the unsharded
-# one exactly; with two cards, dp=2 (dense, global batch 2 x TRAIN_B) and
-# ep=2 (MoE, global batch TRAIN_B) run across them, held to the unsharded
-# step within the training tolerances.
-TWO_CARD_CASES = {"dp": (dict(dp=2), False, 2 * TRAIN_B), "ep": (dict(ep=2), True, TRAIN_B)}
+# one exactly (train_mesh).
 MESH_JOIN_S = 600
+
+# The sharded cases (train_shard): name -> (config, MeshSpec fields, global
+# batch rows). Each runs one process per rank: over NCCL one rank per card
+# where the machine has a card for every rank, else every rank on card 0
+# over a gloo group (NCCL refuses two ranks on one device). Each is held
+# to the unsharded step on card 0 within the training tolerances. The last
+# two are the dp and ep cases of the parallel layer's first slice.
+SHARD_CASES = {
+    "gpt2_tp2": (train_config, dict(tp=2), TRAIN_B),
+    "llama_fsdp2_tp2": (llama_train_config, dict(fsdp=2, tp=2), TRAIN_B),
+    "moe_tp2": (moe_train_config, dict(tp=2), TRAIN_B),
+    "dp2": (train_config, dict(dp=2), 2 * TRAIN_B),
+    "ep2": (moe_train_config, dict(ep=2), TRAIN_B),
+}
 
 
 def mesh_setup(cfg, mesh, opt, dev, generator, batch):
     """bench.py's sequence: shardings from the logical rules, the state
     sharded at creation, the step over the mesh with the batch split over
     (dp, fsdp), and compile_train_step. Returns (step, state, shardings)."""
-    shardings = shardings_from_logical(gpt2.param_logical_specs(cfg), DEFAULT_RULES, mesh)
+    model = model_of(cfg)
+    shardings = shardings_from_logical(model.param_logical_specs(cfg), DEFAULT_RULES, mesh)
     state = spmd.make_train_state(
-        functools.partial(gpt2.init_params, cfg=cfg, device=dev), opt, generator, device=dev,
+        functools.partial(model.init_params, cfg=cfg, device=dev), opt, generator, device=dev,
         param_shardings=shardings,
     )
     step = spmd.make_train_step(
-        functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh), opt, mesh=mesh,
+        functools.partial(model.loss_fn, cfg=cfg, mesh=mesh), opt, mesh=mesh,
         batch_spec=P(("dp", "fsdp")), param_shardings=shardings,
     )
     step, flops = spmd.compile_train_step(step, state, batch)
@@ -1130,7 +1160,7 @@ def mesh_setup(cfg, mesh, opt, dev, generator, batch):
 def loss_and_norm(cfg, params, batch, shardings=None, mesh=None) -> dict:
     """The gradient half of the step (make_grad_fn, global_norm) once:
     the global cross-entropy, the gradients' global norm and the MoE aux."""
-    loss_fn = functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh)
+    loss_fn = functools.partial(model_of(cfg).loss_fn, cfg=cfg, mesh=mesh)
     spec = P(("dp", "fsdp")) if mesh is not None else None
     metrics, grads = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=spec)(params, batch, shardings)
     out = dict(loss=metrics["loss"].item(),
@@ -1141,7 +1171,7 @@ def loss_and_norm(cfg, params, batch, shardings=None, mesh=None) -> dict:
 
 
 def mesh_batch(cfg, rows, dev) -> dict:
-    g = torch.Generator().manual_seed(1)  # on the CPU: the same batch on every card
+    g = torch.Generator().manual_seed(1)  # on the CPU: the same batch on every rank
     tokens = torch.randint(0, cfg.vocab_size, (rows, cfg.max_seq), generator=g).to(dev)
     return {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
 
@@ -1184,8 +1214,7 @@ def train_mesh(dev, tmp: str) -> dict:
     through the process group; GPT-2-125M (MeshSpec(dp=1)) and MoE GPT-2
     (MeshSpec(ep=1)) each equal to the unsharded step exactly; then the
     dense sharded step timed as train_path times its step, with the launch
-    counts zeroed just before and read just after. With two cards, the dp=2
-    and ep=2 cases across them."""
+    counts zeroed just before and read just after."""
     cuda = dev.type == "cuda"
     dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{Path(tmp) / 'store'}",
                             world_size=1, rank=0, **(dict(device_id=dev) if cuda else {}))
@@ -1207,29 +1236,64 @@ def train_mesh(dev, tmp: str) -> dict:
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
-    if not cuda or torch.cuda.device_count() < 2:
-        log("train_mesh: the dp=2 and ep=2 cases need a second card; this machine has one")
-        two_card = "needs a second card"
-    else:
-        two_card = {name: two_card_case(name, "cuda", tmp) for name in TWO_CARD_CASES}
-    return dict(nccl_all_reduce_ok=True, exact=exact, timed=timed, launches=timed["launches"],
-                two_card=two_card)
+    return dict(nccl_all_reduce_ok=True, exact=exact, timed=timed, launches=timed["launches"])
 
 
-def two_card_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
-    """One of TWO_CARD_CASES across two ranks (one process each, on cards 0
-    and 1, or on the CPU over gloo), against the unsharded gradient half
-    of the step on card 0 from the same seed: loss and gradient norm
-    within the training tolerances. Each rank also takes one full step."""
-    spec, moe, rows = TWO_CARD_CASES[name]
-    cfg = cfg or (moe_train_config() if moe else train_config())
+def state_gb(params) -> float:
+    """GB of f32 params, grads and both Adam moments over these leaves."""
+    return 4 * sum(t.numel() * t.element_size() for t in spmd.tree_leaves(params)) / 1e9
+
+
+def shard_step(step, state, batch, dev) -> dict:
+    """One full step with the launch counts zeroed just before and read
+    just after; the peak memory since the caller's reset (made once the
+    state exists, so the whole tree each rank draws before keeping its
+    shard is not counted)."""
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the step
+    step_loss = step(state, batch)[1]["loss"].item()
+    launches = {"flash_fwd": attention.flash_fwd_launches,  # read just after
+                "flash_bwd": attention.flash_bwd_launches}
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9 if dev.type == "cuda" else None
+    return dict(step_loss=step_loss, launches=launches, peak_mem_gb=peak,
+                state_gb=state_gb(state["params"]))
+
+
+def unsharded_step(cfg, rows, dev) -> dict:
+    """The unsharded step's gradient half (loss, gradient norm) and one
+    full step on ``dev``, from the seed every rank draws from."""
+    opt = spmd.default_optimizer(warmup_steps=2, total_steps=20)
+    model, batch = model_of(cfg), mesh_batch(cfg, rows, dev)
+    state = spmd.make_train_state(functools.partial(model.init_params, cfg=cfg, device=dev), opt,
+                                  torch.Generator().manual_seed(0), device=dev)
+    step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=cfg), opt)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    out = loss_and_norm(cfg, state["params"], batch)
+    out.update(shard_step(step, state, batch, dev))
+    return out
+
+
+def shard_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
+    """One of SHARD_CASES: one process per rank (this script with
+    ``--mesh-rank``), over NCCL with a card each where there are enough
+    cards, else all on card 0 over gloo (or on the CPU over gloo), against
+    the unsharded step in this process from the same seed: loss and
+    gradient norm within the training tolerances, and each rank's
+    launches of one full step."""
+    config, spec, rows = SHARD_CASES[name]
+    cfg = cfg or config()
+    world = MeshSpec(**spec).num_devices
+    cuda = device_type == "cuda"
+    backend = "nccl" if cuda and torch.cuda.device_count() >= world else "gloo"
     case = Path(tmp) / f"{name}.pkl"
     with open(case, "wb") as f:
-        pickle.dump(dict(cfg=cfg, spec=spec, rows=rows, device_type=device_type), f)
+        pickle.dump(dict(cfg=cfg, spec=spec, rows=rows, device_type=device_type, backend=backend), f)
     store = Path(tmp) / f"{name}.store"
-    procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank", str(r), "2", str(store),
-                               str(case)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(2)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank", str(r), str(world),
+                               str(store), str(case)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
     outs = []
     try:
         for r, proc in enumerate(procs):
@@ -1241,27 +1305,36 @@ def two_card_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
-    dev = torch.device(device_type, 0) if device_type == "cuda" else torch.device("cpu")
-    params = gpt2.init_params(torch.Generator().manual_seed(0), cfg, device=dev)
-    params = spmd._tree_map(lambda t: t.requires_grad_(True), params)
-    want = loss_and_norm(cfg, params, mesh_batch(cfg, rows, dev))
+    ranks_s = time.perf_counter() - t0
+    dev = torch.device(device_type, 0) if cuda else torch.device("cpu")
+    want = unsharded_step(cfg, rows, dev)
+    per_step = {"flash_fwd": cfg.n_layer * (2 if getattr(cfg, "n_experts", 0) else 1),
+                "flash_bwd": cfg.n_layer}
     for got in outs:
         assert abs(got["loss"] - want["loss"]) <= TRAIN_LOSS_TOL, (name, got, want)
         assert abs(got["gnorm"] - want["gnorm"]) / want["gnorm"] <= TRAIN_GNORM_TOL, (name, got, want)
-    return dict(mesh=spec, batch=[rows, cfg.max_seq], ranks=outs, unsharded=want)
+        if cuda:
+            assert got["launches"] == per_step, (name, got["launches"], per_step)
+    if cuda:
+        torch.cuda.empty_cache()
+    return dict(model=type(cfg).__name__, n_experts=getattr(cfg, "n_experts", 0), mesh=spec,
+                world=world, backend=backend, batch=[rows, cfg.max_seq],
+                launches_per_step=per_step, ranks=outs, unsharded=want, ranks_s=ranks_s)
 
 
 def mesh_rank(rank: int, world: int, store: str, case_path: str) -> None:
-    """One rank of a two-card case (run as ``chip_smoke.py --mesh-rank``):
-    prints its loss, gradient norm and step loss as one JSON line."""
+    """One rank of a sharded case (run as ``chip_smoke.py --mesh-rank``):
+    prints its loss, gradient norm, one full step's loss and launches, its
+    peak memory and the collectives' transport as one JSON line."""
     with open(case_path, "rb") as f:
         case = pickle.load(f)
-    cfg, cuda = case["cfg"], case["device_type"] == "cuda"
-    dev = torch.device("cuda", rank) if cuda else torch.device("cpu")
-    if cuda:
+    cfg, backend = case["cfg"], case["backend"]
+    if case["device_type"] == "cuda":
+        dev = torch.device("cuda", rank if backend == "nccl" else 0)
         torch.cuda.set_device(dev)
-    dist.init_process_group("nccl" if cuda else "gloo", init_method=f"file://{store}",
-                            world_size=world, rank=rank)
+    else:
+        dev = torch.device("cpu")
+    dist.init_process_group(backend, init_method=f"file://{store}", world_size=world, rank=rank)
     try:
         mesh = make_mesh(MeshSpec(**case["spec"]), case["device_type"])
         opt = spmd.default_optimizer(warmup_steps=2, total_steps=20)
@@ -1270,12 +1343,29 @@ def mesh_rank(rank: int, world: int, store: str, case_path: str) -> None:
         step, state, shardings = mesh_setup(
             cfg, mesh, opt, dev, torch.Generator().manual_seed(0), batch
         )
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
         out = loss_and_norm(cfg, state["params"], batch, shardings, mesh)
-        out["step_loss"] = step(state, batch)[1]["loss"].item()
+        out.update(shard_step(step, state, batch, dev))
         out["coords"] = {a: mesh.coordinate(a) for a in mesh.axis_names if mesh.size(a) > 1}
+        # gloo takes CUDA tensors for every collective the port runs and
+        # stages them through host memory; NCCL keeps them on the cards.
+        out["transport"] = dict(backend=dist.get_backend(), tensors=str(dev))
         print(json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
+
+
+def train_shard(dev, tmp: str) -> dict:
+    """Every case of SHARD_CASES in turn (see shard_case); the launches of
+    all ranks' one full step, summed per kernel."""
+    cases = {}
+    for name in SHARD_CASES:
+        cases[name] = shard_case(name, dev.type, tmp)
+        log(f"train_shard {name}: {json.dumps(cases[name])}")
+    launches = {k: sum(r["launches"][k] for c in cases.values() for r in c["ranks"])
+                for k in KERNELS}
+    return dict(cases=cases, launches=launches)
 
 
 # Speculative decoding: the arms of each cache, in order. The vanilla arm
@@ -1524,6 +1614,11 @@ def main() -> int:
     )
     print(json.dumps({"train_mesh": mesh_run}), flush=True)
     torch.cuda.empty_cache()
+    t_shard = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        shard_run = train_shard(dev, tmp)
+    shard_run["phase_s"] = time.perf_counter() - t_shard
+    print(json.dumps({"train_shard": shard_run}), flush=True)
 
     spec_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1542,6 +1637,7 @@ def main() -> int:
                         "train_llama": train_llama["launches"]["flash_fwd"],
                         "train_moe": train_moe["launches"]["flash_fwd"],
                         "train_mesh": mesh_run["launches"]["flash_fwd"],
+                        "train_shard": shard_run["launches"]["flash_fwd"],
                         **{k: f for k, (f, _) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
@@ -1551,6 +1647,7 @@ def main() -> int:
                         "train_llama": train_llama["launches"]["flash_bwd"],
                         "train_moe": train_moe["launches"]["flash_bwd"],
                         "train_mesh": mesh_run["launches"]["flash_bwd"],
+                        "train_shard": shard_run["launches"]["flash_bwd"],
                         **{k: b for k, (_, b) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
@@ -1565,7 +1662,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of a two-card case, started by two_card_case
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of a sharded case, started by shard_case
         mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
         sys.exit(0)
     sys.exit(main())

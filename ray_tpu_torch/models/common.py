@@ -10,10 +10,20 @@ loss over a batch (:func:`split_batch`, :func:`lm_loss`).
 projection oriented ``[V, D]`` (contract over D); a tied-embedding model
 passes its ``wte`` cast to the activation dtype, an untied one its
 ``[D, V]`` head transposed.
+
+Under a mesh (:mod:`ray_tpu_torch.parallel`) each rank holds the local
+shard of every leaf that ``DEFAULT_RULES`` gives (:func:`model_mesh` checks
+it). The ``fsdp`` axis splits every ``embed`` dim: :func:`gathered` is the
+ZeRO-3 gather of a leaf where it is used, inside its layer's remat region,
+and :func:`reshard_after_forward` keeps autograd from holding a gathered
+weight until backward (it is gathered again there). The ``tp`` axis splits
+the vocabulary: :func:`vocab_parallel_embed` and the loss
+(:class:`_VocabParallelCE`) never build a whole ``[B, S, V]``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from typing import Callable
 
@@ -26,6 +36,15 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.attention import uses_flash_kernel
+from ray_tpu_torch.parallel.mesh import Mesh, check_ported_axes, local_mesh
+from ray_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    all_gather_dim,
+    all_reduce,
+    all_reduce_,
+    grad_all_reduce,
+    logical_to_mesh_spec,
+)
 
 
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -58,24 +77,65 @@ class _LogitsF32(torch.autograd.Function):
         return _mm_f32(g, head).to(x.dtype), _mm_f32(g.t(), x).to(head.dtype)
 
 
-def _chunk_loss(x_c: torch.Tensor, head: torch.Tensor, t_c: torch.Tensor) -> torch.Tensor:
+class _VocabParallelCE(torch.autograd.Function):
+    """Per-token cross-entropy ``logsumexp(logits) - logits[target]`` from
+    f32 logits ``[N, V/tp]``, this rank's columns of the vocabulary starting
+    at ``start`` (all of it off a mesh): the global max and the sum of
+    exponentials are one all-reduce over ``tp`` each, and the target's
+    logit is taken on the rank that owns it and all-reduced. The backward
+    is the softmax minus the one-hot on this rank's own columns. A target
+    no rank owns (-1, padding) has no logit: its value is the logsumexp,
+    which the caller masks."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, start, mesh):
+        V = logits.shape[-1]
+        m = all_reduce_(logits.amax(-1), mesh, "tp", "max")
+        e = (logits - m[:, None]).exp_()
+        s = all_reduce_(e.sum(-1), mesh, "tp")
+        local = targets - start
+        own = (local >= 0) & (local < V)
+        local = local.clamp(0, V - 1)
+        tgt = torch.where(own, logits.gather(-1, local[:, None])[:, 0], 0.0)
+        all_reduce_(tgt, mesh, "tp")
+        ctx.save_for_backward(e, s, local, own)
+        return m + torch.log(s) - tgt
+
+    @staticmethod
+    def backward(ctx, g):
+        e, s, local, own = ctx.saved_tensors
+        grad = e * (g / s)[:, None]
+        grad.scatter_add_(-1, local[:, None], torch.where(own, -g, 0.0)[:, None])
+        return grad, None, None, None
+
+
+def _vocab_parallel_ce(logits: torch.Tensor, targets: torch.Tensor, head, mesh: Mesh):
+    """:class:`_VocabParallelCE` of ``logits [..., V/tp]`` under ``head``,
+    this rank's ``[V/tp, D]`` rows of the vocabulary."""
+    start = mesh.coordinate("tp") * head.shape[0]
+    flat = logits.reshape(-1, logits.shape[-1])
+    return _VocabParallelCE.apply(flat, targets.reshape(-1), start, mesh).view(targets.shape)
+
+
+def _chunk_loss(x_c, head, t_c, mesh: Mesh) -> torch.Tensor:
     B, C, D = x_c.shape
-    logits = _LogitsF32.apply(x_c.reshape(B * C, D), head).reshape(B, C, -1)
-    lse = torch.logsumexp(logits, dim=-1)
-    tgt = logits.gather(-1, t_c.clamp(min=0)[..., None])[..., 0]
-    return torch.where(t_c >= 0, lse - tgt, 0.0).sum()
+    logits = _LogitsF32.apply(x_c.reshape(B * C, D), head)
+    return torch.where(t_c >= 0, _vocab_parallel_ce(logits, t_c, head, mesh), 0.0).sum()
 
 
 def chunked_lm_loss(
-    x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, chunk: int
+    x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, chunk: int, mesh: Mesh | None = None
 ) -> torch.Tensor:
     """Sum of next-token cross-entropies over SEQUENCE chunks.
 
     Each chunk's f32 logits ``[B, chunk, vocab]`` live only inside its
     checkpoint and are recomputed in backward, so nothing ``O(B*S*vocab)``
     stays resident. Padded positions carry target -1 and add zero. Returns
-    the f32 sum; the caller divides by ``targets.numel()``.
+    the f32 sum; the caller divides by ``targets.numel()``. Under a mesh
+    with ``tp`` above 1, ``head`` is this rank's vocabulary rows and each
+    chunk's logits are ``[B, chunk, vocab / tp]`` (:class:`_VocabParallelCE`).
     """
+    mesh = mesh or local_mesh()
     B, S, D = x.shape
     n_chunks = -(-S // chunk)
     pad = n_chunks * chunk - S
@@ -86,7 +146,9 @@ def chunked_lm_loss(
     total = torch.zeros((), dtype=torch.float32, device=x.device)
     for c in range(n_chunks):
         sl = slice(c * chunk, (c + 1) * chunk)
-        total = total + checkpoint(_chunk_loss, x[:, sl], head, targets[:, sl], use_reentrant=False)
+        total = total + checkpoint(
+            _chunk_loss, x[:, sl], head, targets[:, sl], mesh, use_reentrant=False
+        )
     return total
 
 
@@ -170,19 +232,131 @@ def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
     return tokens[:, :-1], tokens[:, 1:].long()
 
 
-def lm_loss(x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, chunk: int):
+def lm_loss(
+    x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, chunk: int, mesh: Mesh | None = None
+):
     """Mean next-token cross-entropy of hidden states ``x [B, S, D]`` under
     the output projection ``head [V, D]``: ``(loss, {"loss", "tokens"})``,
     the metrics left on the device. With ``chunk`` set and S past it, the
     chunked loss with f32 logits from operands in the activation dtype;
     otherwise one product in the activation dtype upcast to f32
-    (``ray_tpu/models/gpt2.py:432-439``)."""
+    (``ray_tpu/models/gpt2.py:432-439``). Under a mesh with ``tp`` above 1,
+    ``head`` is this rank's rows of the vocabulary and the loss is
+    vocab-parallel; ``x`` (replicated over ``tp``) enters through
+    :func:`grad_all_reduce`, since each rank's logits give it a part of its
+    gradient."""
+    mesh = mesh or local_mesh()
+    x = grad_all_reduce(x, mesh, "tp")
     if chunk and x.shape[1] > chunk:
-        ce = chunked_lm_loss(x, head, targets, chunk) / targets.numel()
+        ce = chunked_lm_loss(x, head, targets, chunk, mesh) / targets.numel()
     else:
-        logits = (x @ head.T).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        tgt = logits.gather(-1, targets[..., None])[..., 0]
-        ce = (lse - tgt).mean()
+        ce = _vocab_parallel_ce((x @ head.T).float(), targets, head, mesh).mean()
     tokens_n = torch.full((), targets.numel(), dtype=torch.int32, device=ce.device)
     return ce, {"loss": ce.detach(), "tokens": tokens_n}
+
+
+# ---------------------------------------------------------------------------
+# The mesh: local shards, fsdp gathers, the vocabulary over tp
+
+
+def model_mesh(params: dict, cfg, mesh: Mesh | None, logical: dict) -> tuple[Mesh, dict]:
+    """The mesh a model's training path runs on (``mesh``, or one rank's
+    where None) and :func:`fsdp_dims` of the model's logical specs
+    ``logical`` on it. Raises for an axis the port does not run, and
+    ``ValueError`` when the leaves are not this mesh's local shards under
+    ``DEFAULT_RULES`` (``wte`` is split over ``tp`` by vocabulary and over
+    ``fsdp`` by ``embed``): shards given with no mesh are never computed on
+    as if they were whole."""
+    if mesh is None:
+        mesh, where = local_mesh(), "no mesh was given: pass the mesh the leaves are sharded over"
+    else:
+        check_ported_axes(mesh)
+        where = f"the local shard that mesh {mesh.spec.asdict()} gives under DEFAULT_RULES"
+    want = (cfg.vocab_size // mesh.size("tp"), cfg.d_model // mesh.size("fsdp"))
+    got = tuple(params["wte"].shape)
+    if got != want:
+        raise ValueError(f"wte has shape {got}, not {want}, {where} (mesh=)")
+    return mesh, fsdp_dims(logical, mesh)
+
+
+def fsdp_dims(logical: dict, mesh: Mesh) -> dict:
+    """Leaf name -> the dim ``DEFAULT_RULES`` splits over ``fsdp`` on
+    ``mesh`` (of one layer's leaf, for the leaves under ``"blocks"``), or
+    None where the leaf is whole over ``fsdp``."""
+    blocks = logical["blocks"]
+    out = {}
+    for name, lg in [(k, v) for k, v in logical.items() if k != "blocks"] + list(blocks.items()):
+        spec = logical_to_mesh_spec(lg, DEFAULT_RULES, mesh)
+        dim = next((i for i, entry in enumerate(spec) if entry == "fsdp"), None)
+        out[name] = None if dim is None else dim - (name in blocks)
+    return out
+
+
+def sharded_layers(mesh: Mesh) -> bool:
+    """Whether a layer's weights under ``mesh`` are anything but its whole
+    leaves: split over ``fsdp`` (gathered where used) or over ``tp`` (this
+    rank's heads and columns). Off such a mesh the models pass each layer's
+    leaves to its sublayers as they are."""
+    return mesh.size("fsdp") > 1 or mesh.size("tp") > 1
+
+
+def gathered(w: torch.Tensor, mesh: Mesh, dim: int | None, dtype, select: Callable | None = None):
+    """The leaf ``w`` gathered whole over ``fsdp`` along ``dim`` (``w``
+    itself where ``dim`` is None or ``fsdp`` has size 1), then ``select``
+    of it where given, cast to ``dtype``; the gather's gradient is the
+    reduce-scatter of the whole leaf's. Under ``fsdp`` the result carries
+    the recipe that computes it again, which :func:`reshard_after_forward`
+    uses in place of keeping it for backward."""
+
+    def finish(t):
+        return (t if select is None else select(t)).to(dtype)
+
+    if dim is None or mesh.size("fsdp") == 1:
+        return finish(w)
+    out = finish(all_gather_dim(w, mesh, "fsdp", dim))
+    out._regather = lambda: finish(all_gather_dim(w.detach(), mesh, "fsdp", dim))
+    return out
+
+
+class _Regather:
+    __slots__ = ("fn",)
+
+    def __init__(self, fn):
+        self.fn = fn
+
+
+def _pack(t: torch.Tensor):
+    fn = getattr(t, "_regather", None)
+    return t if fn is None else _Regather(fn)
+
+
+def _unpack(saved):
+    if isinstance(saved, _Regather):
+        with torch.no_grad():
+            return saved.fn()
+    return saved
+
+
+def reshard_after_forward(mesh: Mesh):
+    """Under ``fsdp``, a context in which autograd saves a :func:`gathered`
+    weight as its recipe and gathers it again when backward needs it
+    (FSDP's reshard-after-forward), so no layer's whole weights outlive its
+    forward; a no-op otherwise. A checkpointed region inside handles its
+    own saved tensors: its gathers run again in its recompute."""
+    if mesh.size("fsdp") == 1:
+        return contextlib.nullcontext()
+    return torch.autograd.graph.saved_tensors_hooks(_pack, _unpack)
+
+
+def vocab_parallel_embed(wte: torch.Tensor, tokens: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """``wte[tokens]`` with ``wte`` this rank's rows of the vocabulary under
+    ``tp``: each rank looks up the tokens in its range, writes zeros for
+    the rest, and one all-reduce over ``tp`` sums them (its backward the
+    identity: every rank keeps the whole gradient of the result)."""
+    if mesh.size("tp") == 1:
+        return wte[tokens]
+    V = wte.shape[0]
+    local = tokens - mesh.coordinate("tp") * V
+    own = (local >= 0) & (local < V)
+    rows = torch.where(own[..., None], wte[local.clamp(0, V - 1)], 0.0)
+    return all_reduce(rows, mesh, "tp", grad="identity")

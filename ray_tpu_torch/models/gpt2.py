@@ -15,9 +15,20 @@ themselves, so each cast is in the graph and gradients reach them.
 applies the reference's remat policies (``cfg.remat``) whenever grad is
 enabled. With ``cfg.n_experts > 0`` each block's MLP is the reference's
 top-1 switch layer (:func:`_moe_sublayer`), and the loss adds its
-load-balancing term. Under a mesh (:mod:`ray_tpu_torch.parallel`) the
-model runs the ``dp`` and ``ep`` axes; the others raise, and so does
-``pipeline_microbatches`` (the GPipe pipeline is not ported yet).
+load-balancing term.
+
+Under a mesh (:mod:`ray_tpu_torch.parallel`) each rank holds the local
+shard of every leaf that ``DEFAULT_RULES`` gives, and the model computes
+the reference's global-view result over ``dp``, ``fsdp``, ``ep`` and
+``tp``: leaves split over ``fsdp`` are gathered where a layer uses them
+(:func:`~ray_tpu_torch.models.common.gathered`); under ``tp`` the
+embedding and the tied logits are vocab-parallel, ``qkv_w``/``fc_w``
+(and the experts' ``exp_w1``) are split by columns and ``proj_w``/``fc2_w``
+(``exp_w2``) by rows, whose partial products one all-reduce sums (Megatron).
+The rule's ``qkv_w`` blocks are not aligned with the heads (rank 0's
+columns hold all of q and part of k), so each layer gathers ``qkv_w``'s
+columns over ``tp`` and takes its own heads' q, k and v. ``sp``, ``pp`` and
+``pipeline_microbatches`` raise (not ported yet).
 """
 
 from __future__ import annotations
@@ -30,15 +41,25 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.common import (
+    gathered,
     lm_loss,
+    model_mesh,
     remat_block,
     remat_policy,
+    reshard_after_forward,
+    sharded_layers,
     split_batch,
     unbind_layers,
+    vocab_parallel_embed,
 )
 from ray_tpu_torch.ops.attention import causal_attention
-from ray_tpu_torch.parallel.mesh import Mesh, check_ported_axes, local_mesh
-from ray_tpu_torch.parallel.sharding import all_gather, all_reduce, grad_all_reduce
+from ray_tpu_torch.parallel.mesh import Mesh, local_mesh
+from ray_tpu_torch.parallel.sharding import (
+    all_gather,
+    all_gather_dim,
+    all_reduce,
+    grad_all_reduce,
+)
 from ray_tpu_torch.util.device import resolve_device
 
 Params = dict
@@ -245,15 +266,20 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (y * scale + bias).to(x.dtype)
 
 
-def _attn_sublayer(x, p, cfg: GPT2Config):
+def _attn_sublayer(x, p, cfg: GPT2Config, mesh: Mesh = local_mesh()):
+    """``x`` plus attention over this rank's heads (all of them off a mesh).
+    ``p`` holds the layer's weights as :func:`_attn_weights` gives them:
+    ``qkv_w``/``qkv_b`` this rank's heads' q, k and v columns, ``proj_w``
+    their rows. Under ``tp`` the input enters through
+    :func:`grad_all_reduce` and the partial products are summed."""
     B, S, D = x.shape
-    H, Dh = cfg.n_head, cfg.head_dim
-    h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
+    Dh = cfg.head_dim
+    h = grad_all_reduce(_layer_norm(x, p["ln1_scale"], p["ln1_bias"]), mesh, "tp")
     qkv = h @ p["qkv_w"].to(cfg.dtype) + p["qkv_b"].to(cfg.dtype)
-    q, k_, v = qkv.split(D, dim=-1)
+    q, k_, v = qkv.split(qkv.shape[-1] // 3, dim=-1)
 
-    def heads(t):  # [B,S,D] -> [B,H,S,Dh]
-        return t.reshape(B, S, H, Dh).transpose(1, 2)
+    def heads(t):  # [B,S,H*Dh] -> [B,H,S,Dh]
+        return t.reshape(B, S, -1, Dh).transpose(1, 2)
 
     attn = causal_attention(
         heads(q),
@@ -263,15 +289,57 @@ def _attn_sublayer(x, p, cfg: GPT2Config):
         block_q=cfg.attn_block_q,
         block_k=cfg.attn_block_k,
     )
-    attn = attn.transpose(1, 2).reshape(B, S, D)
-    return x + attn @ p["proj_w"].to(cfg.dtype) + p["proj_b"].to(cfg.dtype)
+    attn = attn.transpose(1, 2).reshape(B, S, -1)
+    out = all_reduce(attn @ p["proj_w"].to(cfg.dtype), mesh, "tp", grad="identity")
+    return x + out + p["proj_b"].to(cfg.dtype)
 
 
-def _mlp_sublayer(x, p, cfg: GPT2Config):
-    h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
+def _mlp_sublayer(x, p, cfg: GPT2Config, mesh: Mesh = local_mesh()):
+    h = grad_all_reduce(_layer_norm(x, p["ln2_scale"], p["ln2_bias"]), mesh, "tp")
     h = h @ p["fc_w"].to(cfg.dtype) + p["fc_b"].to(cfg.dtype)
     h = F.gelu(h, approximate="tanh")
-    return x + h @ p["fc2_w"].to(cfg.dtype) + p["fc2_b"].to(cfg.dtype)
+    out = all_reduce(h @ p["fc2_w"].to(cfg.dtype), mesh, "tp", grad="identity")
+    return x + out + p["fc2_b"].to(cfg.dtype)
+
+
+def _own_heads(t: torch.Tensor, cfg: GPT2Config, mesh: Mesh) -> torch.Tensor:
+    """This rank's heads' q, k and v columns ``[..., 3D/tp]`` of the fused
+    ``qkv`` leaf ``t``, whose last dim the rule splits over ``tp`` in
+    contiguous blocks that do not follow the heads: the blocks are
+    gathered, and rank r keeps columns ``[r*D/tp, (r+1)*D/tp)`` of each of
+    q, k and v."""
+    tp = mesh.size("tp")
+    if tp == 1:
+        return t
+    if cfg.n_head % tp:
+        raise ValueError(f"n_head={cfg.n_head} does not split over tp={tp}")
+    whole = all_gather_dim(t, mesh, "tp", -1)
+    own = whole.unflatten(-1, (3, tp, cfg.d_model // tp)).select(-2, mesh.coordinate("tp"))
+    return own.flatten(-2)
+
+
+def _attn_weights(p, cfg: GPT2Config, mesh: Mesh, dims: dict) -> dict:
+    """This rank's attention weights of one layer, in the activation dtype:
+    gathered over ``fsdp`` and, for ``qkv``, its own heads' columns (the
+    leaves as they are off such a mesh: the sublayer casts them)."""
+    if not sharded_layers(mesh):
+        return p
+    own = functools.partial(_own_heads, cfg=cfg, mesh=mesh)
+    return dict(
+        p,
+        qkv_w=gathered(p["qkv_w"], mesh, dims["qkv_w"], cfg.dtype, own),
+        qkv_b=own(p["qkv_b"]).to(cfg.dtype),
+        proj_w=gathered(p["proj_w"], mesh, dims["proj_w"], cfg.dtype),
+    )
+
+
+def _mlp_weights(p, cfg: GPT2Config, mesh: Mesh, dims: dict) -> dict:
+    """This rank's MLP (or expert) weights of one layer, in the activation
+    dtype, gathered over ``fsdp`` (the leaves as they are off such a mesh)."""
+    if not sharded_layers(mesh):
+        return p
+    names = ("gate_w", "exp_w1", "exp_w2") if cfg.n_experts > 0 else ("fc_w", "fc2_w")
+    return dict(p, **{k: gathered(p[k], mesh, dims[k], cfg.dtype) for k in names})
 
 
 def _moe_sublayer(x, p, cfg: GPT2Config, mesh: Mesh):
@@ -290,17 +358,21 @@ def _moe_sublayer(x, p, cfg: GPT2Config, mesh: Mesh):
     sink row past the buffer, so no position past capacity is ever an index.
 
     The reference's program is global-view; under a mesh it is computed as
-    such. Over ``dp`` each rank holds its rows of the batch: the capacity
-    counts the *global* N, a token's position counts the tokens of lower
-    dp ranks (an exclusive scan of their per-expert counts), and ``f`` and
-    ``P`` are global means. Over ``ep`` each rank holds ``E / ep`` experts
-    and the whole of its dp rows: it serves the tokens routed to its own
-    experts, and the partial outputs are summed over ``ep``."""
+    such. Over the batch axes (``dp`` and ``fsdp``) each rank holds its rows
+    of the batch: the capacity counts the *global* N, a token's position
+    counts the tokens of lower batch shards (an exclusive scan of their
+    per-expert counts), and ``f`` and ``P`` are global means. Over ``ep``
+    each rank holds ``E / ep`` experts and the whole of its batch rows: it
+    serves the tokens routed to its own experts. Over ``tp`` each rank holds
+    its slice of every local expert's hidden dim and the routing is
+    replicated. The partial outputs are summed over ``ep`` and ``tp``."""
     B, S, D = x.shape
     E, cdt = cfg.n_experts, cfg.dtype
     h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
     hf = h.reshape(B * S, D).to(cdt)
-    N = B * S * mesh.size("dp")
+    batch_axes = mesh.spec.batch_axes  # ("dp", "fsdp"), dp major
+    shards = mesh.size("dp") * mesh.size("fsdp")
+    N = B * S * shards
     cap = max(int(cfg.expert_capacity_factor * N / E), 1)
 
     probs = torch.softmax((hf @ p["gate_w"].to(cdt)).float(), dim=-1)  # [n, E]
@@ -313,13 +385,14 @@ def _moe_sublayer(x, p, cfg: GPT2Config, mesh: Mesh):
     starts = F.pad(cum[:-1, -1], (1, 0))
     counts = cum[:, -1] - starts
     pos = cum.gather(0, expert[None])[0] - starts[expert] - 1
-    if mesh.size("dp") > 1:
-        every = all_gather(counts, mesh, "dp")  # [dp, E]
-        pos = pos + every[: mesh.coordinate("dp")].sum(0)[expert]
+    if shards > 1:
+        every = all_gather(all_gather(counts, mesh, "fsdp"), mesh, "dp").view(shards, E)
+        shard = mesh.coordinate("dp") * mesh.size("fsdp") + mesh.coordinate("fsdp")
+        pos = pos + every[:shard].sum(0)[expert]
         counts = every.sum(0)
     # Switch load-balancing auxiliary loss: f is the (pre-capacity) routed
     # fraction, P the mean router probability, both over the global batch.
-    prob_sum = all_reduce(probs.sum(0), mesh, "dp", grad="sum")
+    prob_sum = all_reduce(probs.sum(0), mesh, batch_axes, grad="sum")
     aux = E * torch.sum((counts.float() / N) * (prob_sum / N))
     keep = pos < cap  # over-capacity tokens dropped
 
@@ -333,13 +406,15 @@ def _moe_sublayer(x, p, cfg: GPT2Config, mesh: Mesh):
     sink = E_local * cap
     served = keep & (expert >= first) & (expert < first + E_local)
     slot = torch.where(served, (expert - first) * cap + pos, sink)
-    hf_e = grad_all_reduce(hf, mesh, "ep")
-    gate_e = grad_all_reduce(gate, mesh, "ep")
+    hf_e = grad_all_reduce(hf, mesh, ("ep", "tp"))
+    gate_e = grad_all_reduce(gate, mesh, ("ep", "tp"))
     xe = hf_e.new_zeros(sink + 1, D).index_copy(0, slot, hf_e)[:sink].view(E_local, cap, D)
     he = torch.bmm(xe, p["exp_w1"].to(cdt)) + p["exp_b1"].to(cdt)[:, None, :]
     ye = torch.bmm(F.gelu(he, approximate="tanh"), p["exp_w2"].to(cdt)).reshape(sink, D)
     ye = torch.cat([ye, ye.new_zeros(1, D)])
-    y = all_reduce(ye.index_select(0, slot) * gate_e.to(cdt)[:, None], mesh, "ep", grad="identity")
+    y = all_reduce(
+        ye.index_select(0, slot) * gate_e.to(cdt)[:, None], mesh, ("ep", "tp"), grad="identity"
+    )
     # Output bias only for tokens an expert actually served — dropped
     # (over-capacity) tokens pass through the residual truly unchanged.
     y = y + p["exp_b2"].to(cdt) * keep.to(cdt)[:, None]
@@ -355,36 +430,63 @@ def hidden(
 
     With grad enabled each block runs under ``cfg.remat``
     (:func:`~ray_tpu_torch.models.common.remat_policy`; "mlp" is "dots"
-    under MoE); without it, as it is. ``mesh``: the dp and ep axes run
-    (an MoE model needs the mesh its batch and experts are split over);
-    a mesh with another axis above 1 raises."""
+    under MoE); without it, as it is. ``mesh``: the mesh the leaves are
+    the local shards of (``dp``, ``fsdp``, ``ep``, ``tp``); needed under
+    any of them but ``dp``, and sharded leaves with no mesh raise
+    ``ValueError``. A mesh with ``sp`` or ``pp`` above 1 raises."""
+    return _hidden(params, tokens, cfg, *_model_mesh(params, cfg, mesh))
+
+
+def _model_mesh(params: Params, cfg: GPT2Config, mesh: Mesh | None) -> tuple[Mesh, dict]:
+    """The mesh of a call and the leaves' fsdp dims on it, resolved once a
+    call (:func:`~ray_tpu_torch.models.common.model_mesh`)."""
     _check_supported(cfg)
-    if mesh is not None:
-        check_ported_axes(mesh)
+    return model_mesh(params, cfg, mesh, param_logical_specs(cfg))
+
+
+def _hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh: Mesh, dims: dict):
     S = tokens.shape[1]
-    x = params["wte"].to(cfg.dtype)[tokens]
-    x = x + params["wpe"].to(cfg.dtype)[:S][None]
+    x = vocab_parallel_embed(gathered(params["wte"], mesh, dims["wte"], cfg.dtype), tokens, mesh)
+    x = x + gathered(params["wpe"][:S], mesh, dims["wpe"], cfg.dtype)[None]
     remat = remat_policy(cfg, x)  # raises on an unknown policy, as the reference does
     if not torch.is_grad_enabled():
         remat = "none"  # nothing to save for a backward: run each block as it is
-    attn = functools.partial(_attn_sublayer, cfg=cfg)
+
+    def attn(x, p):
+        return _attn_sublayer(x, _attn_weights(p, cfg, mesh, dims), cfg, mesh)
+
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.n_experts > 0:
-        moe = functools.partial(_moe_sublayer, cfg=cfg, mesh=mesh or local_mesh())
-        for p in unbind_layers(params):
-            x, layer_aux = remat_block(attn, moe, x, p, remat)
-            aux = aux + layer_aux
-    else:
-        mlp = functools.partial(_mlp_sublayer, cfg=cfg)
-        for p in unbind_layers(params):
-            x = remat_block(attn, mlp, x, p, remat)
+    with reshard_after_forward(mesh):
+        if cfg.n_experts > 0:
+
+            def moe(x, p):
+                return _moe_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh)
+
+            for p in unbind_layers(params):
+                x, layer_aux = remat_block(attn, moe, x, p, remat)
+                aux = aux + layer_aux
+        else:
+
+            def mlp(x, p):
+                return _mlp_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh)
+
+            for p in unbind_layers(params):
+                x = remat_block(attn, mlp, x, p, remat)
     return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]), aux
+
+
+def _head(params: Params, cfg: GPT2Config, mesh: Mesh, dims: dict) -> torch.Tensor:
+    """The tied output projection ``wte`` [V/tp, D] in the activation dtype:
+    this rank's vocabulary rows, gathered over ``fsdp``."""
+    return gathered(params["wte"], mesh, dims["wte"], cfg.dtype)
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh=None) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, vocab] (activation dtype).
-    Tied embeddings: logits = x @ wte^T."""
-    return hidden(params, tokens, cfg, mesh)[0] @ params["wte"].to(cfg.dtype).T
+    Tied embeddings: logits = x @ wte^T (gathered over ``tp`` under a mesh)."""
+    mesh, dims = _model_mesh(params, cfg, mesh)
+    x = _hidden(params, tokens, cfg, mesh, dims)[0]
+    return all_gather_dim(x @ _head(params, cfg, mesh, dims).T, mesh, "tp", -1)
 
 
 def loss_fn(params: Params, batch: dict, cfg: GPT2Config, mesh=None) -> tuple[torch.Tensor, dict]:
@@ -394,12 +496,14 @@ def loss_fn(params: Params, batch: dict, cfg: GPT2Config, mesh=None) -> tuple[to
     With ``cfg.loss_chunk`` and S past it, the loss is the chunked one with
     f32 logits from bf16 operands. Otherwise the logits are one product in
     the activation dtype, upcast to f32 (``ray_tpu/models/gpt2.py:432-439``).
-    Under MoE the loss is ``ce + moe_aux_weight * moe_aux`` and the metrics
-    add ``"moe_aux"``; ``"loss"`` stays the cross-entropy. The metrics stay
-    on the device."""
+    Under ``tp`` both are vocab-parallel. Under MoE the loss is
+    ``ce + moe_aux_weight * moe_aux`` and the metrics add ``"moe_aux"``;
+    ``"loss"`` stays the cross-entropy. The metrics stay on the device.
+    ``mesh`` as for :func:`hidden`; the loss is this rank's rows' mean."""
     inputs, targets = split_batch(batch)
-    x, moe_aux = hidden(params, inputs, cfg, mesh)
-    ce, metrics = lm_loss(x, params["wte"].to(cfg.dtype), targets, cfg.loss_chunk)
+    mesh, dims = _model_mesh(params, cfg, mesh)
+    x, moe_aux = _hidden(params, inputs, cfg, mesh, dims)
+    ce, metrics = lm_loss(x, _head(params, cfg, mesh, dims), targets, cfg.loss_chunk, mesh)
     if cfg.n_experts == 0:
         return ce, metrics
     metrics["moe_aux"] = moe_aux.detach()

@@ -16,9 +16,16 @@ is repeated for its group of query heads before the attention kernel (in
 training, autograd sums the expanded K/V's gradients over each group).
 
 Training runs the remat policies and the next-token loss that GPT-2 runs
-(:mod:`ray_tpu_torch.models.common`). Under a mesh it runs the dp and ep
-axes; the others (ring attention over sp, the pipeline over pp, fsdp, tp)
-raise.
+(:mod:`ray_tpu_torch.models.common`). Under a mesh each rank holds the
+local shard of every leaf that ``DEFAULT_RULES`` gives, and the model
+computes the reference's global-view result over ``dp``, ``fsdp``, ``ep``
+and ``tp``: leaves split over ``fsdp`` are gathered where a layer uses them;
+under ``tp`` ``wq`` is split by heads, SwiGLU by columns (``w_gate``,
+``w_up``) and rows (``w_down``), ``wo`` by rows, and the embedding and
+``lm_head`` by vocabulary. ``wk``/``wv`` stay whole over ``tp``; each rank
+projects only the KV heads its query heads read, so its gradient of them
+is partial and is summed over ``tp``. Ring attention over ``sp`` and the
+pipeline over ``pp`` raise.
 """
 
 from __future__ import annotations
@@ -30,15 +37,21 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.common import (
+    gathered,
     lm_loss,
+    model_mesh,
     remat_block,
     remat_policy,
+    reshard_after_forward,
+    sharded_layers,
     split_batch,
     unbind_layers,
+    vocab_parallel_embed,
 )
 from ray_tpu_torch.models.gpt2 import layer_params  # the same stacked layout
 from ray_tpu_torch.ops.attention import causal_attention
-from ray_tpu_torch.parallel.mesh import check_ported_axes
+from ray_tpu_torch.parallel.mesh import Mesh, local_mesh
+from ray_tpu_torch.parallel.sharding import all_gather_dim, all_reduce, grad_all_reduce
 from ray_tpu_torch.util.device import resolve_device
 
 Params = dict
@@ -187,7 +200,7 @@ def _rms_norm(x, scale, eps):
     return (x32 * rms * scale).to(x.dtype)
 
 
-def rope_tables(cfg: LlamaConfig, seq: int, device="cpu"):
+def rope_tables(cfg: LlamaConfig, seq: int, device):
     """(cos, sin) ``[seq, head_dim/2]`` f32 rotary tables."""
     half = cfg.head_dim // 2
     freqs = cfg.rope_theta ** (-torch.arange(0, half, dtype=torch.float32, device=device) / half)
@@ -213,38 +226,87 @@ def expand_kv(t, group: int):
     return t.repeat_interleave(group, dim=1)
 
 
-def _qkv_rope(x, p, cfg: LlamaConfig, cos, sin):
+def _qkv_rope(x, p, cfg: LlamaConfig, cos, sin, mesh: Mesh = local_mesh()):
     """x [B, T, D] -> (q [B,H,T,Dh], k [B,KH,T,Dh], v [B,KH,T,Dh]): RMSNorm,
     the three projections, and q and k rotated with the position rows
-    ``cos``/``sin`` (see :func:`_apply_rope`)."""
+    ``cos``/``sin`` (see :func:`_apply_rope`). The head counts are the
+    weights' own: under ``tp`` (``p`` from :func:`_attn_weights`) this
+    rank's query heads and the KV heads they read, the normed input
+    entering through :func:`grad_all_reduce`."""
     B, T, _ = x.shape
-    H, KH, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
-    h = _rms_norm(x, p["attn_norm"], cfg.rms_eps)
+    Dh = cfg.head_dim
+    h = grad_all_reduce(_rms_norm(x, p["attn_norm"], cfg.rms_eps), mesh, "tp")
 
-    def heads(w, n):
-        return (h @ p[w].to(cfg.dtype)).reshape(B, T, n, Dh).transpose(1, 2)
+    def heads(w):
+        return (h @ p[w].to(cfg.dtype)).reshape(B, T, -1, Dh).transpose(1, 2)
 
     return (
-        _apply_rope(heads("wq", H), cos, sin),
-        _apply_rope(heads("wk", KH), cos, sin),
-        heads("wv", KH),
+        _apply_rope(heads("wq"), cos, sin),
+        _apply_rope(heads("wk"), cos, sin),
+        heads("wv"),
     )
 
 
-def _attn_sublayer(x, p, cfg: LlamaConfig, cos, sin):
+def _kv_heads(cfg: LlamaConfig, mesh: Mesh) -> tuple[int, int]:
+    """The KV heads ``[lo, hi)`` that this rank's query heads read: rank r
+    holds query heads ``r*H/tp ... (r+1)*H/tp - 1``, and query head ``h``
+    reads KV head ``h // (H / KH)``. Raises unless the heads split over
+    ``tp`` and each local KV head serves the same number of them."""
+    tp = mesh.size("tp")
+    H, group = cfg.n_head // tp, cfg.n_head // cfg.n_kv_head
+    if cfg.n_head % tp or (H % group and group % H):
+        raise ValueError(
+            f"n_head={cfg.n_head} over n_kv_head={cfg.n_kv_head} does not split over tp={tp}"
+        )
+    r = mesh.coordinate("tp")
+    return r * H // group, ((r + 1) * H - 1) // group + 1
+
+
+def _attn_weights(p, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> dict:
+    """This rank's attention weights of one layer in the activation dtype,
+    gathered over ``fsdp``: ``wq``'s columns and ``wo``'s rows of its own
+    heads, and the columns of ``wk``/``wv`` for the KV heads they read.
+    ``wk``/``wv`` are whole over ``tp``, and each rank uses a part of them,
+    so their gradients are summed over ``tp`` (:func:`grad_all_reduce`).
+    Off such a mesh the leaves as they are: the sublayer casts them."""
+    if not sharded_layers(mesh):
+        return p
+    lo, hi = _kv_heads(cfg, mesh)
+    Dh = cfg.head_dim
+
+    def kv(t):
+        return t[..., lo * Dh: hi * Dh]
+
+    out = dict(p, **{k: gathered(p[k], mesh, dims[k], cfg.dtype) for k in ("wq", "wo")})
+    for k in ("wk", "wv"):
+        out[k] = gathered(grad_all_reduce(p[k], mesh, "tp"), mesh, dims[k], cfg.dtype, kv)
+    return out
+
+
+def _mlp_weights(p, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> dict:
+    """This rank's SwiGLU weights of one layer in the activation dtype,
+    gathered over ``fsdp`` (the leaves as they are off such a mesh)."""
+    if not sharded_layers(mesh):
+        return p
+    names = ("w_gate", "w_up", "w_down")
+    return dict(p, **{k: gathered(p[k], mesh, dims[k], cfg.dtype) for k in names})
+
+
+def _attn_sublayer(x, p, cfg: LlamaConfig, cos, sin, mesh: Mesh = local_mesh()):
     B, S, D = x.shape
-    q, k, v = _qkv_rope(x, p, cfg, cos, sin)
-    group = cfg.n_head // cfg.n_kv_head
+    q, k, v = _qkv_rope(x, p, cfg, cos, sin, mesh)
+    group = q.shape[1] // k.shape[1]
     attn = causal_attention(q, expand_kv(k, group), expand_kv(v, group), impl=cfg.attn_impl)
-    attn = attn.transpose(1, 2).reshape(B, S, D)
-    return x + attn @ p["wo"].to(cfg.dtype)
+    attn = attn.transpose(1, 2).reshape(B, S, -1)
+    return x + all_reduce(attn @ p["wo"].to(cfg.dtype), mesh, "tp", grad="identity")
 
 
-def _mlp_sublayer(x, p, cfg: LlamaConfig):
-    h = _rms_norm(x, p["mlp_norm"], cfg.rms_eps)
+def _mlp_sublayer(x, p, cfg: LlamaConfig, mesh: Mesh = local_mesh()):
+    h = grad_all_reduce(_rms_norm(x, p["mlp_norm"], cfg.rms_eps), mesh, "tp")
     gate = h @ p["w_gate"].to(cfg.dtype)
     up = h @ p["w_up"].to(cfg.dtype)
-    return x + (F.silu(gate) * up) @ p["w_down"].to(cfg.dtype)
+    out = (F.silu(gate) * up) @ p["w_down"].to(cfg.dtype)
+    return x + all_reduce(out, mesh, "tp", grad="identity")
 
 
 def hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
@@ -252,42 +314,63 @@ def hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) ->
 
     With grad enabled each block runs under ``cfg.remat``
     (:func:`~ray_tpu_torch.models.common.remat_policy`); without it, as it
-    is. ``mesh`` is the reference's: the dp and ep axes need nothing of the
-    model, and a mesh with another axis above 1 (``sp``: ring attention,
-    ``pp``: the pipeline, ``fsdp``, ``tp``) raises."""
-    if mesh is not None:
-        check_ported_axes(mesh)
+    is. ``mesh``: the mesh the leaves are the local shards of (``dp``,
+    ``fsdp``, ``ep``, ``tp``); needed under ``fsdp`` or ``tp``, and sharded
+    leaves with no mesh raise ``ValueError``. A mesh with ``sp`` (ring
+    attention) or ``pp`` (the pipeline) above 1 raises."""
+    return _hidden(params, tokens, cfg, *_model_mesh(params, cfg, mesh))
+
+
+def _model_mesh(params: Params, cfg: LlamaConfig, mesh: Mesh | None) -> tuple[Mesh, dict]:
+    """The mesh of a call and the leaves' fsdp dims on it, resolved once a
+    call (:func:`~ray_tpu_torch.models.common.model_mesh`)."""
+    return model_mesh(params, cfg, mesh, param_logical_specs(cfg))
+
+
+def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh: Mesh, dims: dict):
     S = tokens.shape[1]
-    x = params["wte"].to(cfg.dtype)[tokens]
+    x = vocab_parallel_embed(gathered(params["wte"], mesh, dims["wte"], cfg.dtype), tokens, mesh)
     cos, sin = rope_tables(cfg, S, tokens.device)
     remat = remat_policy(cfg, x)  # raises on an unknown policy, as the reference does
     if not torch.is_grad_enabled():
         remat = "none"  # nothing to save for a backward: run each block as it is
 
     def attn(x, p):
-        return _attn_sublayer(x, p, cfg, cos, sin)
+        return _attn_sublayer(x, _attn_weights(p, cfg, mesh, dims), cfg, cos, sin, mesh)
 
     def mlp(x, p):
-        return _mlp_sublayer(x, p, cfg)
+        return _mlp_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh)
 
-    for p in unbind_layers(params):
-        x = remat_block(attn, mlp, x, p, remat)
+    with reshard_after_forward(mesh):
+        for p in unbind_layers(params):
+            x = remat_block(attn, mlp, x, p, remat)
     return _rms_norm(x, params["final_norm"], cfg.rms_eps)
 
 
+def _head(params: Params, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> torch.Tensor:
+    """``lm_head`` [D, V/tp] in the activation dtype, transposed to
+    [V/tp, D]: this rank's vocabulary columns, gathered over ``fsdp``."""
+    return gathered(params["lm_head"], mesh, dims["lm_head"], cfg.dtype).T
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
-    """tokens [B, S] int -> logits [B, S, vocab] (activation dtype)."""
-    return hidden(params, tokens, cfg, mesh) @ params["lm_head"].to(cfg.dtype)
+    """tokens [B, S] int -> logits [B, S, vocab] (activation dtype;
+    gathered over ``tp`` under a mesh)."""
+    mesh, dims = _model_mesh(params, cfg, mesh)
+    x = _hidden(params, tokens, cfg, mesh, dims)
+    return all_gather_dim(x @ _head(params, cfg, mesh, dims).T, mesh, "tp", -1)
 
 
 def loss_fn(params: Params, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, dict]:
     """Next-token cross-entropy: ``(loss, {"loss", "tokens"})``, with the
     batch contract of :func:`ray_tpu_torch.models.gpt2.loss_fn`. The
     untied head ``lm_head [D, V]`` goes to the loss transposed, as at
-    ``ray_tpu/models/llama.py:298-301``."""
+    ``ray_tpu/models/llama.py:298-301``; under ``tp`` it is this rank's
+    vocabulary columns and the loss is vocab-parallel."""
     inputs, targets = split_batch(batch)
-    x = hidden(params, inputs, cfg, mesh)
-    return lm_loss(x, params["lm_head"].to(cfg.dtype).T, targets, cfg.loss_chunk)
+    mesh, dims = _model_mesh(params, cfg, mesh)
+    x = _hidden(params, inputs, cfg, mesh, dims)
+    return lm_loss(x, _head(params, cfg, mesh, dims), targets, cfg.loss_chunk, mesh)
 
 
 def num_params(cfg: LlamaConfig) -> int:

@@ -4,7 +4,8 @@
 Every axis (dp / fsdp / tp / sp / pp / ep) is a named axis of one
 ``DeviceMesh``; parameters are placed by logical rules, each rank holding its
 local shard, and collectives are explicit ``torch.distributed`` calls. The
-port runs ``dp`` and ``ep``; the reference's ``constrain`` is not ported.
+port runs ``dp``, ``fsdp``, ``ep`` and ``tp``; ``sp`` and ``pp`` raise, and the
+reference's ``constrain`` is not ported.
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -23,10 +24,13 @@ from ray_tpu_torch.parallel.sharding import (
     P,
     PartitionSpec,
     all_gather,
+    all_gather_dim,
     all_reduce,
+    all_reduce_,
     grad_all_reduce,
     logical_to_mesh_spec,
     named_sharding,
+    reduce_scatter_dim,
     shard_tree,
     shardings_from_logical,
 )
@@ -49,6 +53,9 @@ __all__ = [
     "shardings_from_logical",
     "shard_tree",
     "all_gather",
+    "all_gather_dim",
+    "reduce_scatter_dim",
     "all_reduce",
+    "all_reduce_",
     "grad_all_reduce",
 ]

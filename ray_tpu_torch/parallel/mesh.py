@@ -13,8 +13,8 @@ size) beside the ``DeviceMesh``, so the logical rules
 A ``Mesh`` whose axes all have size 1 needs no ``DeviceMesh`` at all
 (:func:`local_mesh`): nothing is ever communicated over a size-1 axis.
 
-The port runs the ``dp`` and ``ep`` axes; :func:`check_ported_axes` raises
-for a mesh with ``fsdp``, ``tp``, ``sp`` or ``pp`` above 1.
+The port runs the ``dp``, ``fsdp``, ``ep`` and ``tp`` axes;
+:func:`check_ported_axes` raises for a mesh with ``sp`` or ``pp`` above 1.
 """
 
 from __future__ import annotations
@@ -29,9 +29,9 @@ import torch.distributed as dist
 AXIS_NAMES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
 
 # The axes the port's models and train step run; the others raise.
-PORTED_AXES = ("dp", "ep")
+PORTED_AXES = ("dp", "fsdp", "ep", "tp")
 _NOT_PORTED = (
-    "the port runs the dp and ep axes; fsdp, tp, sp (ring attention) and pp "
+    "the port runs the dp, fsdp, ep and tp axes; sp (ring attention) and pp "
     "(the pipeline) are not ported yet"
 )
 
@@ -143,7 +143,7 @@ def local_mesh() -> Mesh:
 
 def check_ported_axes(mesh: Any) -> None:
     """Raise ``NotImplementedError`` naming the first axis of size > 1 that
-    the port does not run (``fsdp``, ``tp``, ``sp``, ``pp``)."""
+    the port does not run (``sp``, ``pp``)."""
     if not isinstance(mesh, Mesh):
         raise NotImplementedError(
             f"expected a ray_tpu_torch.parallel.Mesh, got {type(mesh).__name__}: {_NOT_PORTED}"

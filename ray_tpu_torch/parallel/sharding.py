@@ -6,12 +6,16 @@ Changing the parallelism strategy = changing the rule table, never the model.
 
 The reference places a leaf as one global ``jax.Array`` and lets XLA insert
 the collectives. Here each rank holds the **local shard** its rule gives
-(:func:`shard_tree`), and the few collectives the ported axes need are
-explicit ``torch.distributed`` calls: :func:`all_reduce` and
-:func:`grad_all_reduce` carry their gradients through autograd,
-:func:`all_gather` carries none. The
-reference's ``constrain`` (``with_sharding_constraint`` inside jit) has no
-eager counterpart and is not ported.
+(:func:`shard_tree`), and the collectives the ported axes need are explicit
+``torch.distributed`` calls over one axis's process group (or several axes'
+in turn): :func:`all_reduce`, :func:`grad_all_reduce` and
+:func:`all_gather_dim` carry their gradients through autograd;
+:func:`all_reduce_`, :func:`all_gather` and :func:`reduce_scatter_dim` carry
+none. Each takes the tensors where they are: NCCL and gloo both take CUDA
+tensors for every one of them (gloo stages them through host memory itself;
+checked on the card with torch 2.11). The reference's ``constrain``
+(``with_sharding_constraint`` inside jit) has no eager counterpart and is
+not ported.
 """
 
 from __future__ import annotations
@@ -171,7 +175,22 @@ def shard_tree(tree: Any, shardings: Any) -> Any:
 
 
 # ---------------------------------------------------------------------------
-# Collectives with gradients
+# Collectives
+
+
+def _split_axes(mesh: Mesh, axes: "str | Sequence[str]") -> list[str]:
+    """The axes of ``axes`` (one name or several) that have size > 1."""
+    return [a for a in ((axes,) if isinstance(axes, str) else axes) if mesh.size(a) > 1]
+
+
+def all_reduce_(x: torch.Tensor, mesh: Mesh, axes, op: str = "sum") -> torch.Tensor:
+    """Reduce the contiguous ``x`` in place over the ranks along each of
+    ``axes`` in turn (``op``: ``"sum"`` or ``"max"``) and return it.
+    Carries no gradient."""
+    reduce_op = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
+    for a in _split_axes(mesh, axes):
+        dist.all_reduce(x, op=reduce_op, group=mesh.group(a))
+    return x
 
 
 class _AllReduce(torch.autograd.Function):
@@ -184,36 +203,48 @@ class _AllReduce(torch.autograd.Function):
         ctx.group, ctx.bwd = group, bwd
         if not fwd:
             return x.view_as(x)
-        x = x.clone()
+        x = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(x, group=group)
         return x
 
     @staticmethod
     def backward(ctx, g):
         if ctx.bwd:
-            g = g.clone()
+            g = g.clone(memory_format=torch.contiguous_format)
             dist.all_reduce(g, group=ctx.group)
         return g, None, None, None
 
 
-def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str, *, grad: str) -> torch.Tensor:
-    """``x`` summed over the ranks along ``axis`` (``x`` itself where the
-    axis has size 1). ``grad`` says what reaches each rank's ``x`` in
-    backward:
+def all_reduce(x: torch.Tensor, mesh: Mesh, axes, *, grad: str) -> torch.Tensor:
+    """``x`` summed over the ranks along ``axes`` (one axis name, or several
+    summed in turn; ``x`` itself where they all have size 1). ``grad`` says
+    what reaches each rank's ``x`` in backward:
 
     - ``"identity"``: the rank's own cotangent. Right where every rank along
-      the axis runs the same graph after the sum and each keeps its whole
-      gradient (the MoE combine over ``ep``); a sum would scale it by the
-      axis size.
-    - ``"sum"``: the cotangents summed over the axis. Right where the
-      ranks' gradients are later *averaged* over the axis (a global mean
-      over ``dp``): after the average each rank holds the whole gradient.
+      the axes runs the same graph after the sum and each keeps its whole
+      gradient (the MoE combine over ``ep``, a row-split product over
+      ``tp``); a sum would scale it by the axes' size.
+    - ``"sum"``: the cotangents summed over the axes. Right where the
+      ranks' gradients are later *averaged* over the axes (a global mean
+      over ``dp`` and ``fsdp``): after the average each rank holds the
+      whole gradient.
     """
     if grad not in ("identity", "sum"):
         raise ValueError(f"grad must be 'identity' or 'sum', got {grad!r}")
-    if mesh.size(axis) == 1:
-        return x
-    return _AllReduce.apply(x, mesh.group(axis), True, grad == "sum")
+    for a in _split_axes(mesh, axes):
+        x = _AllReduce.apply(x, mesh.group(a), True, grad == "sum")
+    return x
+
+
+def grad_all_reduce(x: torch.Tensor, mesh: Mesh, axes) -> torch.Tensor:
+    """``x`` unchanged, its gradient summed over the ranks along ``axes``:
+    the entry to a region where each rank computes its own part of a
+    result that :func:`all_reduce` (``grad="identity"``) then sums, or
+    where each rank uses only its own part of a replicated ``x`` (Megatron's
+    f to :func:`all_reduce`'s g)."""
+    for a in _split_axes(mesh, axes):
+        x = _AllReduce.apply(x, mesh.group(a), False, True)
+    return x
 
 
 def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
@@ -223,14 +254,48 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
         return x[None]
     flat = x.reshape(-1)
     out = flat.new_empty(mesh.size(axis) * flat.numel())
-    dist.all_gather_into_tensor(out, flat, group=mesh.group(axis))
+    dist.all_gather_into_tensor(out, flat, group=mesh.group(axis))  # gloo wants a flat output
     return out.view(mesh.size(axis), *x.shape)
 
 
-def grad_all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
-    """``x`` unchanged, its gradient summed over the ranks along ``axis``:
-    the entry to a region where each rank computes its own part of a
-    result that :func:`all_reduce` (``grad="identity"``) then sums."""
+def reduce_scatter_dim(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """``x`` summed over the ranks along ``axis`` and cut along ``dim`` into
+    one block per rank: this rank's block, ``x.shape[dim] / size`` long.
+    Carries no gradient."""
+    n = mesh.size(axis)
+    if n == 1:
+        return x
+    front = x.movedim(dim, 0).contiguous()
+    if front.shape[0] % n:
+        raise ValueError(f"dim {dim} of shape {tuple(x.shape)} does not split into {n} blocks")
+    out = front.new_empty(front.numel() // n)
+    dist.reduce_scatter_tensor(out, front.view(-1), group=mesh.group(axis))
+    return out.view(front.shape[0] // n, *front.shape[1:]).movedim(0, dim)
+
+
+class _AllGatherDim(torch.autograd.Function):
+    """Concatenate every rank's block along ``dim`` in axis order; the
+    backward sums the cotangents over the axis and keeps this rank's block
+    (a reduce-scatter), since each rank may use any part of the whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        n = mesh.size(axis)
+        front = x.movedim(dim, 0)
+        out = all_gather(front.contiguous(), mesh, axis)  # [n, *front.shape]
+        return out.view(n * front.shape[0], *front.shape[1:]).movedim(0, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return reduce_scatter_dim(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Tensor:
+    """The whole tensor from every rank's block ``x`` along ``dim`` over
+    ``axis`` (``x`` itself where the axis has size 1): the ZeRO-3 gather of
+    a leaf split over ``fsdp``, or of column blocks split over ``tp``. Its
+    gradient is the reduce-scatter (sum) of the whole tensor's."""
     if mesh.size(axis) == 1:
         return x
-    return _AllReduce.apply(x, mesh.group(axis), False, True)
+    return _AllGatherDim.apply(x, mesh, axis, dim % x.dim())

@@ -6,12 +6,14 @@ eagerly: forward, backward (``torch.autograd.grad``), global-norm clipping
 and AdamW, then ``step + 1``. The state is updated **in place**, the
 counterpart of donation: params and optimizer moments are never held twice.
 
-Over a mesh (:mod:`ray_tpu_torch.parallel`; the dp and ep axes) each rank
-holds the local shard of each leaf that its sharding gives, takes its rows
-of the global batch, and runs the collectives itself: gradients of leaves
-replicated over dp are averaged over dp, the global norm sums each shard's
-squares once, and the metrics are the global ones. The result is the
-reference's global-view step.
+Over a mesh (:mod:`ray_tpu_torch.parallel`; the dp, fsdp, ep and tp axes)
+each rank holds the local shard of each leaf that its sharding gives,
+takes its rows of the global batch (split over dp x fsdp), and runs the
+collectives itself: every gradient is averaged over dp x fsdp (a leaf
+split over fsdp already holds the sum over fsdp, from its gather's
+reduce-scatter), the global norm sums each shard's squares once, and the
+metrics are the global ones. The models sum the tp and ep parts of a
+gradient themselves. The result is the reference's global-view step.
 
 Not ported: a compiled step. ``compile_train_step`` returns the step as it
 is, with no flop count.
@@ -24,10 +26,9 @@ import math
 from typing import Any, Callable
 
 import torch
-import torch.distributed as dist
 
 from ray_tpu_torch.parallel.mesh import Mesh, check_ported_axes
-from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec, shard_tree
+from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec, all_reduce_, shard_tree
 from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
 
 # TrainState is a plain dict: {"params", "opt_state", "step", "shardings"}.
@@ -195,16 +196,22 @@ def make_grad_fn(
     ``batch_spec`` (by default the batch dim over ``MeshSpec.batch_axes``,
     dp major, as the reference's ``P(("dp", "fsdp"))``), so ``loss_fn``'s
     mean is over its own rows, and the mean of the ranks' losses is the
-    global one. Gradients of leaves that ``shardings`` does not split over
-    dp are averaged over dp. ``metrics["loss"]`` becomes the global mean
-    and ``metrics["tokens"]`` the global count; other metrics (``moe_aux``)
+    global one. Every gradient is averaged over the batch axes: a leaf
+    that ``shardings`` splits over ``fsdp`` holds the sum over ``fsdp``
+    already (its gather's backward is a reduce-scatter), so it is summed
+    over ``dp`` only; any other leaf is summed over both. No leaf is
+    reduced twice. ``metrics["loss"]`` becomes the global mean and
+    ``metrics["tokens"]`` the global count; other metrics (``moe_aux``)
     are global already."""
     if mesh is not None:
         check_ported_axes(mesh)
         batch_sharding = NamedSharding(
             mesh, batch_spec if batch_spec is not None else PartitionSpec(mesh.spec.batch_axes)
         )
-    dp = mesh.size("dp") if mesh is not None else 1
+        batch_axes = [a for a in mesh.spec.batch_axes if mesh.size(a) > 1]
+    else:
+        batch_axes = []
+    shards = math.prod(mesh.size(a) for a in batch_axes)
 
     def grad_fn(params: dict, batch: Any, shardings: Any) -> tuple[dict, list]:
         if mesh is not None:
@@ -212,19 +219,15 @@ def make_grad_fn(
         leaves = tree_leaves(params)
         loss, metrics = loss_fn(params, batch)
         grads = list(torch.autograd.grad(loss, leaves))
-        if dp == 1:
+        if not batch_axes:
             return metrics, grads
-        group = mesh.group("dp")
         for i, axes in enumerate(_leaf_axes(shardings, len(grads))):
-            if "dp" not in axes:
-                grads[i] = grads[i].contiguous()  # a collective takes a dense buffer
-                dist.all_reduce(grads[i], group=group)
-                grads[i].div_(dp)
+            grads[i] = grads[i].contiguous()  # a collective takes a dense buffer
+            all_reduce_(grads[i], mesh, [a for a in batch_axes if a not in axes])
+            grads[i].div_(shards)
         metrics = dict(metrics)
-        loss_sum = metrics["loss"].clone()
-        dist.all_reduce(loss_sum, group=group)
-        metrics["loss"] = loss_sum / dp
-        metrics["tokens"] = metrics["tokens"] * dp
+        metrics["loss"] = all_reduce_(metrics["loss"].clone(), mesh, batch_axes) / shards
+        metrics["tokens"] = metrics["tokens"] * shards
         return metrics, grads
 
     return grad_fn
@@ -232,16 +235,17 @@ def make_grad_fn(
 
 def global_norm(grads: list, shardings: Any, mesh: Mesh | None) -> torch.Tensor:
     """The global norm of a tree of gradients held as local shards: the
-    squares of a replicated leaf count once, and those of a leaf split over
-    ep are summed over ep. Every rank gets the same value."""
-    axes = _leaf_axes(shardings, len(grads))
-    whole = [g.square().sum() for g, a in zip(grads, axes) if "ep" not in a]
-    split = [g.square().sum() for g, a in zip(grads, axes) if "ep" in a]
-    total = torch.stack(whole).sum()
-    if split:
-        part = torch.stack(split).sum()
-        dist.all_reduce(part, group=mesh.group("ep"))
-        total = total + part
+    squares of a leaf are summed over every axis that splits it (fsdp, tp,
+    ep), so a replicated leaf counts once. Every rank gets the same value."""
+    by_axes: dict[tuple, list] = {}
+    for g, axes in zip(grads, _leaf_axes(shardings, len(grads))):
+        by_axes.setdefault(tuple(sorted(axes)), []).append(g.square().sum())
+    total = None
+    for axes in sorted(by_axes):  # () first: the replicated leaves
+        part = torch.stack(by_axes[axes]).sum()
+        if axes:
+            all_reduce_(part, mesh, axes)
+        total = part if total is None else total + part
     return total.sqrt()
 
 
@@ -257,13 +261,13 @@ def make_train_step(
 ) -> Callable[[TrainState, Any], tuple[TrainState, dict]]:
     """Build ``step(state, batch) -> (state, metrics)``.
 
-    ``loss_fn(params, batch)`` returns ``(scalar_loss, metrics)``; a
-    mixture-of-experts model under a mesh takes the mesh itself
-    (``functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh)``). The step
+    ``loss_fn(params, batch)`` returns ``(scalar_loss, metrics)``; a model
+    under a mesh with fsdp, tp or ep above 1 (or any MoE model) takes the
+    mesh itself (``functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh)``). The step
     updates ``state`` in place and returns it with the metrics, which stay
     on the device: nothing in the step waits for the card.
 
-    ``mesh`` (dp and ep; another axis above 1 raises): ``batch`` is the
+    ``mesh`` (dp, fsdp, ep and tp; sp or pp above 1 raises): ``batch`` is the
     **global** batch, as the reference's jitted step takes it; see
     :func:`make_grad_fn` for the rows each rank takes and the averages.
     ``param_shardings`` is the tree the state was made with (by default

@@ -151,8 +151,10 @@ def test_convert_bf16_tree_bit_exact_and_compute_params(models):
 
 def test_unported_variants_raise(models):
     """What the port does not run yet raises: the GPipe pipeline
-    (``pipeline_microbatches``) and a mesh with an fsdp, tp, sp or pp axis
-    above 1, which is named. MoE and the dp and ep axes are ported."""
+    (``pipeline_microbatches``) and a mesh with an sp or pp axis above 1,
+    which is named. MoE and the dp, fsdp, ep and tp axes are ported; leaves
+    that are not the mesh's local shards raise ``ValueError`` naming the
+    mesh: whole leaves under fsdp or tp, and shards given with no mesh."""
     _, _, pcfg, pparams = models
     toks = torch.zeros((1, 4), dtype=torch.long)
     cfg = dataclasses.replace(pcfg, pipeline_microbatches=2)
@@ -160,9 +162,15 @@ def test_unported_variants_raise(models):
         pgpt2.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="pipeline"):
         pgpt2.forward(pparams, toks, cfg)
-    for axis in ("fsdp", "tp", "sp", "pp"):
+    for axis in ("sp", "pp"):
         with pytest.raises(NotImplementedError, match=f"{axis}=2"):
             pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(**{axis: 2})))
+    for axis in ("fsdp", "tp"):
+        with pytest.raises(ValueError, match=f"'{axis}': 2.*mesh="):
+            pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(**{axis: 2})))
+    shard = dict(pparams, wte=pparams["wte"][:, : pcfg.d_model // 2])
+    with pytest.raises(ValueError, match="no mesh was given.*mesh="):
+        pgpt2.forward(shard, toks, pcfg)
     with pytest.raises(NotImplementedError, match="ring attention"):
         pgpt2.forward(pparams, toks, pcfg, mesh=object())
     want = pgpt2.forward(pparams, toks, pcfg)

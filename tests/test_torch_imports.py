@@ -1,5 +1,5 @@
-"""The port stands alone: ``ray_tpu_torch`` and ``chip_smoke.py`` import
-neither jax nor anything of the JAX package, and importing the port builds
+"""The port stands alone: ``ray_tpu_torch``, ``chip_smoke.py`` and
+``torch_host_ab.py`` import neither jax nor anything of the JAX package, and importing the port builds
 nothing and pulls in no jax."""
 
 import ast
@@ -10,7 +10,10 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py",
+    ROOT / "torch_host_ab.py",
+]
 
 
 def _forbidden(module: str) -> bool:

@@ -9,10 +9,13 @@ side runs in the test's own process), and pickles this rank's results to
 
 - ``name``, ``mesh`` (``MeshSpec`` fields) and ``kind``:
   ``"steps"`` (``make_train_step`` for ``steps`` steps; the losses, aux and
-  params after), ``"grads"`` (``make_grad_fn`` once; metrics and grads) or
-  ``"raises"`` (each unported axis at size WORLD must raise in the step
-  and in both models' ``hidden``) or ``"mismatch"`` (a mesh for another
-  number of devices must raise);
+  params after), ``"grads"`` (``make_grad_fn`` once; metrics and grads),
+  ``"full"`` (both: ``make_grad_fn`` and ``global_norm`` once, with the
+  count of weights its backward gathered again over fsdp, the logits of
+  ``forward`` where no batch axis splits the rows, then ``steps``
+  steps), ``"raises"`` (each unported axis at size WORLD must raise in
+  the step and in both models' ``hidden``) or ``"mismatch"`` (a mesh for
+  another number of devices must raise);
 - for the first two, ``family`` (``"gpt2"`` or ``"llama"``), ``cfg`` (config
   fields; f32 activations), ``tree`` and ``batch`` (numpy) and ``opt``
   (``default_optimizer`` arguments).
@@ -27,7 +30,7 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
-from ray_tpu_torch.models import gpt2, llama
+from ray_tpu_torch.models import common, gpt2, llama
 from ray_tpu_torch.models.convert import gpt2_params_from_numpy, llama_params_from_numpy
 from ray_tpu_torch.parallel import (
     DEFAULT_RULES,
@@ -37,6 +40,16 @@ from ray_tpu_torch.parallel import (
     shardings_from_logical,
 )
 from ray_tpu_torch.train import spmd
+
+# Saved weights that backward gathered again over fsdp (reshard_after_forward).
+REGATHERED = [0]
+_unpack = common._unpack
+
+
+def _counting_unpack(saved):
+    REGATHERED[0] += isinstance(saved, common._Regather)
+    return _unpack(saved)
+
 
 FAMILIES = {
     "gpt2": (gpt2, gpt2.GPT2Config, gpt2_params_from_numpy),
@@ -71,12 +84,19 @@ def run_case(case: dict) -> dict:
     loss_fn = functools.partial(model.loss_fn, cfg=cfg, mesh=mesh)
     batch = {k: torch.from_numpy(v) for k, v in case["batch"].items()}
     out = dict(coords=coords, specs=[tuple(s.spec) for s in spmd.tree_leaves(shardings)])
-    if case["kind"] == "grads":
+    if case["kind"] in ("grads", "full"):
+        REGATHERED[0] = 0
         metrics, grads = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=P(("dp", "fsdp")))(
             state["params"], batch, shardings
         )
-        out.update(metrics={k: v.item() for k, v in metrics.items()}, grads=_numpy(grads))
-        return out
+        out.update(grad_metrics={k: v.item() for k, v in metrics.items()}, grads=_numpy(grads),
+                   gnorm=spmd.global_norm(grads, shardings, mesh).item(),
+                   regathered=REGATHERED[0])
+        if case["kind"] == "grads":
+            return out
+        if all(mesh.size(a) == 1 for a in mesh.spec.batch_axes):  # every rank has every row
+            with torch.no_grad():
+                out["logits"] = model.forward(state["params"], batch["tokens"], cfg, mesh).numpy()
     step = spmd.make_train_step(
         loss_fn, opt, mesh=mesh, batch_spec=P(("dp", "fsdp")), param_shardings=shardings
     )
@@ -119,6 +139,7 @@ def raises(mesh) -> dict:
 
 def main(rank: int, world: int, store: str, cases_path: str, out_dir: str) -> None:
     torch.manual_seed(0)
+    common._unpack = _counting_unpack
     dist.init_process_group("gloo", init_method=f"file://{store}", world_size=world, rank=rank)
     try:
         with open(cases_path, "rb") as f:
