@@ -11,7 +11,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
 2. Hold each kernel against its plain PyTorch version on the card, at the
    shapes the serving path (B=1) and the training path (B=8, S=1024) give
    it, and the forward also at Llama's layout (contiguous q, K/V expanded
-   from 4 KV heads, B=1, S=1024); time kernel, plain version and the
+   from 4 KV heads, B=1, S=1024) and at one tensor-parallel rank's 6 heads
+   of GPT-2-125M (B=1, S=1024); time kernel, plain version and the
    PyTorch library call that computes the same function.
 3. Serve through the port's ``LLMEngine`` at the reference engine's
    default shape (16 slots, 2048 positions), four paths in turn, each at
@@ -95,7 +96,25 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    and read just after (12 + 12, MoE 24 + 12), and prints its peak memory
    and the size of its state beside the unsharded step's. Ranks that
    share one card are not speed evidence.
-14. Speculative decoding with a GPT-2-125M target, in the reference's own
+14. Tensor-parallel serving (``serve_tp``): ``LLMEngine`` with
+   ``tensor_parallelism`` > 1, each rank a process (this script with
+   ``--serve-rank``), placed as in phase 13: GPT-2-125M at ``tp=2`` on the
+   paged and the dense cache, Llama-125M at ``tp=2`` paged and ``tp=4``
+   dense, each on phase 3's configuration and traffic, and the spec
+   probe's 1-layer draft arm (phase 15's shape, dense) at ``tp=2`` on
+   streams cut to 64 tokens. A one-rank engine of the same fields and seed
+   serves the same traffic in this process first. Every rank's streams,
+   counters and first-token logits must equal rank 0's; rank 0's streams
+   must equal the one-rank engine's, or first diverge at a near tie within
+   bf16's noise (as phase 15's spec arms against vanilla); rank 0's
+   first-token logits of the 1000-token prompt (spec: of its first
+   stream) within twice the family's bf16 tolerance of phase 5 of the
+   one-rank engine's; each rank's flash_fwd launches those of the one-rank
+   path on that traffic (spec: its target and draft prefills), and its KV
+   bytes the one-rank engine's divided by tp. Each rank's telemetry is
+   checked as in phase 4. Peak memory, KV size, launches, transport and
+   the ranks' seconds are printed, and are not speed evidence.
+15. Speculative decoding with a GPT-2-125M target, in the reference's own
    spec-decoding probe shape (4 slots, 1024 positions, 3 greedy streams of
    200 tokens after a warm-up request, k=4), on the dense cache (``spec``)
    and the paged one (``spec_paged``). Three arms each: vanilla, a 1-layer
@@ -120,6 +139,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import dataclasses
+import datetime
 import functools
 import json
 import math
@@ -173,6 +193,7 @@ TRAIN_LOSS_TOL = 1e-2
 TRAIN_GNORM_TOL = 2e-2
 
 SERVE_SHAPES = [32, 128, 512, 1024, 2048, 100]  # prefill buckets + one ragged S
+TP_RANK_HEADS = 6  # GPT-2-125M's heads on one rank of tensor_parallelism=2
 HEADLINE_S = 1024
 MAX_TOKENS = 32
 TRAIN_B, TRAIN_S = 8, 1024  # bench.py's per-chip batch at max_seq
@@ -330,14 +351,16 @@ def attention_shapes():
 
 def check_flash_kernel(dev) -> list[dict]:
     """The forward kernel against its plain version at every serving and
-    training shape on GPT-2's strided head views, and at B=1, S=1024 on
-    Llama's layout (contiguous q, K/V expanded from 4 KV heads)."""
+    training shape on GPT-2's strided head views, at B=1, S=1024 on
+    Llama's layout (contiguous q, K/V expanded from 4 KV heads), and at
+    B=1, S=1024 on one tensor-parallel rank's 6 heads of GPT-2 (serve_tp)."""
     rows = []
-    cases = [("qkv_views", B, S) for B, S in attention_shapes()]
-    cases.append(("gqa_expanded", 1, HEADLINE_S))
-    for layout, B, S in cases:
+    cases = [("qkv_views", B, S, 12) for B, S in attention_shapes()]
+    cases.append(("gqa_expanded", 1, HEADLINE_S, 12))
+    cases.append(("qkv_views", 1, HEADLINE_S, TP_RANK_HEADS))
+    for layout, B, S, H in cases:
         make = qkv_views if layout == "qkv_views" else gqa_layout
-        q, k, v = make(S, dev, B=B, seed=S)
+        q, k, v = make(S, dev, B=B, H=H, seed=S)
         scale = 1.0 / 8.0
         o, lse = attention.flash_attention_fwd(q, k, v, scale)
         torch.cuda.synchronize()
@@ -351,8 +374,8 @@ def check_flash_kernel(dev) -> list[dict]:
         library_ms = time_ms(
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, scale=scale), iters
         )
-        bound_ms, bound_by = flash_bound_ms(B, 12, S, 64)
-        row = dict(layout=layout, B=B, S=S, max_abs_err=err_o, max_abs_err_lse=err_lse, ms=ms,
+        bound_ms, bound_by = flash_bound_ms(B, H, S, 64)
+        row = dict(layout=layout, B=B, H=H, S=S, max_abs_err=err_o, max_abs_err_lse=err_lse, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                    library_ms=library_ms)
         log("flash_fwd", json.dumps(row))
@@ -1376,9 +1399,17 @@ SPEC_ARMS = ("vanilla", "draft_1layer", "self_draft")
 
 def spec_engine(fields: dict, arm: str, self_draft_path: str) -> LLMEngine:
     """The probe's engine (GPT-2-125M target, random weights from seed 0)
-    for one arm: no draft, the probe's 1-layer d128 draft (2 heads, so
-    head_dim is the kernel's 64; the target's vocabulary), or the target's
-    own config with its weights from ``self_draft_path``."""
+    for one arm (:func:`spec_config`)."""
+    engine = LLMEngine(LLMConfig(**spec_config(fields, arm, self_draft_path)))
+    assert (engine._spec is None) == (arm == "vanilla")
+    return engine
+
+
+def spec_config(fields: dict, arm: str, self_draft_path: str | None) -> dict:
+    """The probe's LLMConfig fields for one arm: no draft, the probe's
+    1-layer d128 draft (2 heads, so head_dim is the kernel's 64; the
+    target's vocabulary), or the target's own config with its weights from
+    ``self_draft_path``."""
     target = gpt2.GPT2Config.gpt2_125m()
     drafts = {
         "vanilla": {},
@@ -1391,12 +1422,8 @@ def spec_engine(fields: dict, arm: str, self_draft_path: str) -> LLMEngine:
         "self_draft": dict(spec_decode_tokens=SPEC_K, draft_model_config=target,
                            draft_weights_path=self_draft_path),
     }
-    engine = LLMEngine(LLMConfig(
-        model_config=target, max_slots=4, max_seq=1024, prefill_buckets=(32, 128, 1024),
-        enable_prefix_caching=False, seed=0, **fields, **drafts[arm],
-    ))
-    assert (engine._spec is None) == (arm == "vanilla")
-    return engine
+    return dict(model_config=target, max_slots=4, max_seq=1024, prefill_buckets=(32, 128, 1024),
+                enable_prefix_caching=False, seed=0, **fields, **drafts[arm])
 
 
 def spec_arm(engine, record_logits: bool) -> dict:
@@ -1404,15 +1431,7 @@ def spec_arm(engine, record_logits: bool) -> dict:
     streams of SPEC_TOKENS tokens, with the launch counts zeroed just
     before the streams and read just after. With ``record_logits`` every
     sampled position's f32 logits are kept, by (stream, index)."""
-    logits_at: dict = {}
-    if record_logits:
-        sample, ref = type(engine)._sample, weakref.ref(engine)  # no cycle: see count_prefill_calls
-
-        def recording_sample(logits, req):
-            logits_at[(req.request_id, len(req.generated))] = np.array(logits, np.float32)
-            return sample(ref(), logits, req)
-
-        engine._sample = recording_sample
+    logits_at = record_sampled_logits(engine) if record_logits else {}
     engine.generate(["warm me"], SamplingParams(max_tokens=8))
     logits_at.clear()
     stats0 = dict(engine.stats)
@@ -1445,6 +1464,20 @@ def spec_arm(engine, record_logits: bool) -> dict:
         lengths=[len(t) for t in streams.values()], vanilla_decode_steps=run["vanilla_decode_steps"],
         telemetry=telemetry,
     )
+
+
+def record_sampled_logits(engine) -> dict:
+    """Keep the f32 logits of every position ``engine`` samples on the
+    host, by (request id, index in its stream); returns the dict it fills."""
+    logits_at: dict = {}
+    sample, ref = type(engine)._sample, weakref.ref(engine)  # no cycle: see count_prefill_calls
+
+    def recording_sample(logits, req):
+        logits_at[(req.request_id, len(req.generated))] = np.array(logits, np.float32)
+        return sample(ref(), logits, req)
+
+    engine._sample = recording_sample
+    return logits_at
 
 
 def compare_streams(vanilla: dict, spec: dict, bound: float) -> list[dict]:
@@ -1520,6 +1553,202 @@ def profile_spec_steps(engine) -> dict:
     return prof
 
 
+# Tensor-parallel serving (serve_tp): name -> (LLMConfig fields, tp, the
+# one-rank reference's fields). Each case is served by tp rank processes
+# (this script with --serve-rank), SPMD ranks of one LLMEngine: over NCCL
+# with a card each where the machine has a card for every rank, else all on
+# card 0 over gloo. The serving cases take the serve phase's configuration
+# (16 slots x 2048, paged unless kv_block_size=0) and traffic, held against
+# the one-rank engine of the same fields and seed; the spec case is the
+# probe's 1-layer draft arm on the dense cache, its streams cut from
+# SPEC_TOKENS to TP_SPEC_TOKENS tokens for time, held against the probe's
+# vanilla arm as the spec phases hold theirs.
+TP_SPEC_TOKENS = 64
+TP_COLLECTIVE_S = 300  # a collective waiting this long on a dead rank raises
+TP_CASES = {
+    "gpt2_tp2": (dict(), 2, dict()),
+    "gpt2_tp2_dense": (dict(kv_block_size=0), 2, dict(kv_block_size=0)),
+    "llama_tp2": (dict(model_config=LLAMA_125M), 2, dict(model_config=LLAMA_125M)),
+    "llama_tp4_dense": (dict(model_config=LLAMA_125M, kv_block_size=0), 4,
+                        dict(model_config=LLAMA_125M, kv_block_size=0)),
+    "gpt2_tp2_spec": (spec_config(dict(kv_block_size=0), "draft_1layer", None), 2,
+                      spec_config(dict(kv_block_size=0), "vanilla", None)),
+}
+
+
+def tp_reference(name: str) -> tuple[dict, dict]:
+    """One serve_tp case's one-rank engine on card 0, from the same seed:
+    the warm-up, then the case's traffic with the launch counts zeroed just
+    before and read just after, every sampled position's f32 logits kept.
+    Returns (the case as the ranks run it, the reference's record)."""
+    fields, tp, ref_fields = TP_CASES[name]
+    spec = "spec_decode_tokens" in fields
+    engine = LLMEngine(LLMConfig(**{"seed": 0, **ref_fields}))
+    logits_at = record_sampled_logits(engine)
+    if spec:
+        warm, warm_tokens, first_of = ["warm me"], 8, "s0"
+        prompts = {f"s{i}": f"stream {i}" for i in range(SPEC_STREAMS)}
+        tokens = TP_SPEC_TOKENS
+    else:
+        rng = np.random.default_rng(0)
+        warm, warm_tokens, first_of = [token_ids(rng, engine)(40)], 2, "p1000"
+        prompts, tokens = traffic(engine, rng), MAX_TOKENS
+    engine.generate(warm, SamplingParams(max_tokens=warm_tokens))
+    logits_at.clear()
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before
+    run = drive(engine, prompts, SamplingParams(max_tokens=tokens))
+    launches = attention.flash_fwd_launches  # read just after
+    cfg = engine.model_config
+    if spec:  # the draft's dense prefill runs the kernel too, per draft layer
+        launches += fields["draft_model_config"].n_layer * len(prompts)
+    ref = dict(streams=run["streams"], logits_at=logits_at, launches=launches,
+               kv_bytes=kv_bytes(engine), family=type(cfg).__name__, paged=engine.paged,
+               n_layer=cfg.n_layer)
+    case = dict(name=name, fields={**{"seed": 0, **fields}, "tensor_parallelism": tp}, warm=warm,
+                warm_tokens=warm_tokens, prompts=prompts, tokens=tokens, first_of=first_of)
+    del engine
+    torch.cuda.empty_cache()
+    return case, ref
+
+
+def tp_rank_case(case: dict, rank: int, out_dir: str) -> dict:
+    """One serve_tp case on this rank: the engine built, the warm-up, then
+    the traffic with the launch counts zeroed just before and read just
+    after, and its telemetry checked as a serving path's; the first-token
+    logits of ``first_of`` saved beside the record."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = LLMEngine(LLMConfig(**case["fields"]))
+    logits_at = record_sampled_logits(engine)
+    engine.generate(case["warm"], SamplingParams(max_tokens=case["warm_tokens"]))
+    logits_at.clear()
+    start = begin_telemetry(engine)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before
+    t_run = time.perf_counter()
+    run = drive(engine, case["prompts"], SamplingParams(max_tokens=case["tokens"]))
+    run_s = time.perf_counter() - t_run
+    launches = attention.flash_fwd_launches  # read just after
+    bwd_launches = attention.flash_bwd_launches
+    telemetry = check_telemetry(engine, start, run)
+    assert all(r.error is None for r in run["finished"])
+    np.save(Path(out_dir) / f"{case['name']}_rank{rank}.npy", logits_at[(case["first_of"], 0)])
+    kv = engine.pool if engine.paged else engine.cache
+    out = dict(
+        rank=rank, device=str(engine.device), streams=run["streams"],
+        stats={k: engine.stats[k] - start["stats"][k] for k in engine.stats},
+        kv_stats=engine.kv_stats(), kv_shape=list(kv["k"].shape), kv_bytes=kv_bytes(engine),
+        kv_gb=kv_bytes(engine) / 1e9, launches=launches, bwd_launches=bwd_launches,
+        peak_mem_gb=torch.cuda.max_memory_allocated(engine.device) / 1e9,
+        run_s=run_s, build_and_run_s=time.perf_counter() - t0,
+        transport=dict(backend=dist.get_backend(), tensors=str(engine.device)),
+        telemetry=telemetry["checks"], telemetry_checks_hold=telemetry["all_checks_hold"],
+    )
+    del engine, kv
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_rank(rank: int, world: int, store: str, cases_path: str, out_dir: str) -> None:
+    """One rank of serve_tp's cases of one world (run as ``chip_smoke.py
+    --serve-rank``): every case in turn on this rank's card, one JSON list
+    of their records as the last line of its output."""
+    with open(cases_path, "rb") as f:
+        cases = pickle.load(f)
+    backend = cases[0]["backend"]
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    dist.init_process_group(backend, init_method=f"file://{store}", world_size=world, rank=rank,
+                            timeout=datetime.timedelta(seconds=TP_COLLECTIVE_S))
+    GLOBAL_CONFIG.metrics_enabled = GLOBAL_CONFIG.flightrec = GLOBAL_CONFIG.spec_decode = True
+    try:
+        out = [dict(name=c["name"], **tp_rank_case(c, rank, out_dir)) for c in cases]
+    finally:
+        dist.destroy_process_group()
+    print(json.dumps(out), flush=True)
+
+
+def tp_spawn(world: int, cases: list, tmp: str) -> tuple[dict, float]:
+    """Run ``cases`` on ``world`` rank processes; ({case: each rank's
+    record}, the ranks' wall seconds). Every rank is joined within
+    MESH_JOIN_S and killed after; a rank that fails fails the phase."""
+    backend = "nccl" if torch.cuda.device_count() >= world else "gloo"
+    path, store = Path(tmp) / f"tp{world}.pkl", Path(tmp) / f"tp{world}.store"
+    with open(path, "wb") as f:
+        pickle.dump([dict(c, backend=backend) for c in cases], f)
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, __file__, "--serve-rank", str(r), str(world), str(store),
+                               str(path), tmp], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for r in range(world)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=MESH_JOIN_S)
+            assert proc.returncode == 0, f"serve_tp world {world} rank {r} exited {proc.returncode}:\n{err}"
+            outs.append(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    by_case = {c["name"]: [ranks[i] for ranks in outs] for i, c in enumerate(cases)}
+    return by_case, time.perf_counter() - t0
+
+
+def serve_tp(tmp: str, stream_bound: float, logits_tol: dict) -> dict:
+    """Every case of TP_CASES: the one-rank references first, then each
+    world's ranks, then the checks. Every rank's streams, counters and
+    first-token logits equal rank 0's; rank 0's streams equal the one-rank
+    engine's, or first diverge where that engine's f32 logits put the two
+    tokens within ``stream_bound``; rank 0's first-token logits of the
+    1000-token prompt (the spec case: its first stream's) within twice the
+    family's bf16 tolerance of the one-rank engine's; each rank's flash_fwd
+    launches equal to the one-rank path's on that traffic, and its KV bytes
+    the one-rank engine's divided by tp."""
+    cases, refs = {}, {}
+    for name in TP_CASES:
+        cases[name], refs[name] = tp_reference(name)
+    ranks, spawn_s = {}, {}
+    for world in sorted({tp for _, tp, _ in TP_CASES.values()}):
+        names = [n for n, (_, tp, _) in TP_CASES.items() if tp == world]
+        got, spawn_s[world] = tp_spawn(world, [cases[n] for n in names], tmp)
+        ranks.update(got)
+    out = {}
+    for name, (fields, tp, _) in TP_CASES.items():
+        ref, rs = refs[name], ranks[name]
+        r0 = rs[0]
+        firsts = [np.load(Path(tmp) / f"{name}_rank{r['rank']}.npy") for r in rs]
+        for r, first in zip(rs[1:], firsts[1:]):
+            for key in ("streams", "stats", "kv_stats"):
+                assert r[key] == r0[key], f"serve_tp {name}: rank {r['rank']}'s {key} differ from rank 0's"
+            assert np.array_equal(first, firsts[0]), f"serve_tp {name}: rank {r['rank']}'s logits differ"
+        divergences = compare_streams(ref, r0, stream_bound)
+        want = ref["logits_at"][(cases[name]["first_of"], 0)]
+        bound = 2.0 * logits_tol[ref["family"]]
+        diff = float(np.abs(firsts[0] - want).max())
+        assert diff <= bound, f"serve_tp {name}: first-token logits {diff} from one rank's > {bound}"
+        for r in rs:
+            assert r["launches"] == ref["launches"], (name, r["rank"], r["launches"], ref["launches"])
+            assert r["bwd_launches"] == 0, (name, r["bwd_launches"])
+            assert r["kv_bytes"] * tp == ref["kv_bytes"], (name, r["kv_bytes"], ref["kv_bytes"], tp)
+            assert r["telemetry_checks_hold"], (name, r["rank"])
+        if "spec_decode_tokens" in fields:
+            assert r0["stats"]["spec_steps"] > 0, r0["stats"]
+        shared = r0["transport"]["backend"] == "gloo" and torch.cuda.device_count() < tp
+        out[name] = dict(
+            model=ref["family"], tp=tp, paged=ref["paged"], spec="spec_decode_tokens" in fields,
+            first_token_logits=dict(request=cases[name]["first_of"], max_abs_diff=diff, bound=bound),
+            streams_equal_one_rank=not divergences, divergences=divergences,
+            launches_per_rank=ref["launches"], kv_gb_one_rank=ref["kv_bytes"] / 1e9,
+            ranks_identical=True, stats=r0["stats"],
+            speed_evidence=("none: the ranks share one card over gloo, which stages every "
+                            "collective through host memory" if shared else "none: not timed"),
+            ranks=[{k: r[k] for k in ("rank", "device", "peak_mem_gb", "kv_gb", "kv_shape", "launches",
+                                      "transport", "run_s", "build_and_run_s")} for r in rs],
+        )
+        log(f"serve_tp {name}: {json.dumps(out[name])}")
+    launches = sum(r["launches"] for rs in ranks.values() for r in rs)
+    return dict(cases=out, ranks_wall_s=spawn_s, launches=launches, bwd_launches=0,
+                stream_bound=stream_bound)
+
 
 def kernel_entry(name, built, rows, head, launches_by_path, replaces) -> dict:
     return {
@@ -1558,7 +1787,7 @@ def main() -> int:
     # Telemetry on, as the reference runs by default, for every phase but
     # the A/B's "off" arm.
     GLOBAL_CONFIG.metrics_enabled = GLOBAL_CONFIG.flightrec = GLOBAL_CONFIG.spec_decode = True
-    serve_launches, dense_checks, bf16_bound, ab = {}, {}, None, {}
+    serve_launches, dense_checks, bf16_bound, ab, family_tol = {}, {}, None, {}, {}
     for name, fields, per_layer in SERVE_PATHS:
         t_phase = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
@@ -1573,6 +1802,7 @@ def main() -> int:
         )
         if not engine.paged:
             dense_checks[family] = keep
+            family_tol[family] = logits["tol"]
         if name == "serve":
             bf16_bound = logits["tol"]  # GPT-2's bf16 noise on first-token logits
         prof = profile_engine(engine, np.random.default_rng(1))
@@ -1619,6 +1849,14 @@ def main() -> int:
         shard_run = train_shard(dev, tmp)
     shard_run["phase_s"] = time.perf_counter() - t_shard
     print(json.dumps({"train_shard": shard_run}), flush=True)
+    torch.cuda.empty_cache()
+    t_tp = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tp_run = serve_tp(tmp, bf16_bound, family_tol)
+    tp_run["phase_s"] = time.perf_counter() - t_tp
+    serve_launches["serve_tp"] = (tp_run["launches"], tp_run["bwd_launches"])
+    print(json.dumps({"serve_tp": tp_run}), flush=True)
+    torch.cuda.empty_cache()
 
     spec_launches = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1628,7 +1866,7 @@ def main() -> int:
             print(json.dumps({"spec": spec}), flush=True)
 
     fwd_head = next(
-        r for r in fwd_rows if (r["layout"], r["B"], r["S"]) == ("qkv_views", 1, HEADLINE_S)
+        r for r in fwd_rows if (r["layout"], r["B"], r["H"], r["S"]) == ("qkv_views", 1, 12, HEADLINE_S)
     )
     bwd_head = next(r for r in bwd_rows if (r["B"], r["S"]) == (TRAIN_B, TRAIN_S))
     fwd = kernel_entry("flash_fwd", built, fwd_rows, fwd_head,
@@ -1664,5 +1902,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of a sharded case, started by shard_case
         mesh_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--serve-rank"]:  # one rank of serve_tp's cases, started by tp_spawn
+        serve_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5], sys.argv[6])
         sys.exit(0)
     sys.exit(main())

@@ -5,7 +5,10 @@
 lists, as ``Dataset.map_batches`` hands it) that generates one text per
 prompt. The engine is built on the first call and cached per process, so
 later batches reuse it. The port has no Data layer yet: callers call the
-processor directly.
+processor directly. With ``tensor_parallelism > 1`` the engine is one rank
+of an SPMD group (:class:`~ray_tpu_torch.llm.engine.LLMEngine`): every rank
+builds the processor and calls it on the same batches, and each returns
+the same texts.
 """
 
 from __future__ import annotations

@@ -6,9 +6,10 @@ paged pool by default, as in the reference: ``kv_block_size=16`` and
 ``num_kv_blocks``; 0 selects the dense per-slot cache), weights, prefix
 caching, chunked prefill and speculative decoding (``spec_decode_tokens``
 with a draft model), and the model id that the batch entry point's engine
-cache keys on. ``tensor_parallelism > 1`` names later work and makes the
-engine raise ``NotImplementedError``. The reference's replica placement
-arrives with the serve layer that reads it.
+cache keys on, and the tensor-parallel degree (``tensor_parallelism``: the
+engine is then one rank of an SPMD group; see
+:class:`~ray_tpu_torch.llm.engine.LLMEngine`). The reference's replica
+placement arrives with the serve layer that reads it.
 """
 
 from __future__ import annotations
@@ -41,7 +42,8 @@ class LLMConfig:
     # floored at one max-length request, plus the scratch block.
     kv_block_size: int = 16
     num_kv_blocks: Optional[int] = None
-    # Tensor-parallel degree (only 1 is ported).
+    # Tensor-parallel degree: > 1 splits the heads, the MLP and the
+    # vocabulary over that many ranks of the caller's process group.
     tensor_parallelism: int = 1
     # Initial weights: a path to a pickled params pytree of numpy arrays,
     # or None for random init from ``seed``.
@@ -69,9 +71,40 @@ class LLMConfig:
     draft_weights_path: Optional[str] = None
 
     def build_model_config(self):
+        """The model config the engine serves. Raises ``ValueError``
+        naming the field when ``tensor_parallelism`` does not split it
+        (:func:`check_tensor_parallelism`)."""
         from ray_tpu_torch.models.gpt2 import GPT2Config
 
         if self.model_config is not None:
-            return self.model_config
-        cfg = GPT2Config.gpt2_125m()
-        return dataclasses.replace(cfg, max_seq=max(cfg.max_seq, self.max_seq))
+            cfg = self.model_config
+        else:
+            cfg = GPT2Config.gpt2_125m()
+            cfg = dataclasses.replace(cfg, max_seq=max(cfg.max_seq, self.max_seq))
+        check_tensor_parallelism(cfg, self.tensor_parallelism)
+        return cfg
+
+
+def check_tensor_parallelism(cfg, tp: int) -> None:
+    """Raise ``ValueError`` naming the field unless ``tp`` splits ``cfg``
+    whole: the query heads, the vocabulary and the MLP's hidden width each
+    divide over ``tp``, and (Llama) each rank's query heads read whole KV
+    heads: a rank's heads are one or more whole groups, or a part of one
+    group that ranks share. The reference may still run some of these
+    (XLA splits GPT-2's fused ``qkv`` columns whether or not the heads
+    divide); the port refuses them."""
+    if tp < 1:
+        raise ValueError(f"tensor_parallelism must be >= 1, got {tp}")
+    for field in ("n_head", "vocab_size", "d_ff"):
+        if getattr(cfg, field) % tp:
+            raise ValueError(
+                f"tensor_parallelism={tp} does not divide {field}={getattr(cfg, field)}"
+            )
+    kv = getattr(cfg, "n_kv_head", None)
+    if kv is not None:
+        local, group = cfg.n_head // tp, cfg.n_head // kv
+        if local % group and group % local:
+            raise ValueError(
+                f"tensor_parallelism={tp} gives each rank {local} query heads, which do not "
+                f"read whole KV heads (n_head={cfg.n_head}, n_kv_head={kv})"
+            )

@@ -52,8 +52,31 @@ spec step: for the proposals and the verify argmax); admission reads back
 the last-logits of a prompt to sample its first token, as the reference
 does.
 
-Not ported yet (they raise ``NotImplementedError``): tensor parallelism
-and the disaggregated prefill/decode handoff.
+**Tensor parallelism** (``tensor_parallelism = tp > 1``, as the
+reference's ``ray_tpu/llm/engine.py:188-218``) makes the engine one rank of
+an SPMD group: every rank builds it with the same config and makes the
+same calls in the same order (``add_request``, ``step``, ``generate``),
+each in its own process, under a process group the caller has started
+(``torch.distributed.init_process_group`` with ``tp`` ranks; NCCL with a
+card for each rank, or gloo, with which ranks may share one card). Each
+rank holds its query heads and the KV heads they read (in its own dense
+cache or block pool), its columns of the MLP's up projection and its rows
+of the down and output projections, and its shard of the vocabulary
+(:func:`ray_tpu_torch.models.convert.tp_shard`); each layer sums the
+attention output and the MLP output with one all-reduce each, and the
+logits are gathered whole before the readback. The host loop
+(scheduling, the prefix pool, the block manager, sampling) runs on every
+rank on the same logits, so every rank makes the same decisions with no
+further sync and returns the same tokens. On the card rank ``r`` uses
+``cuda:r`` where the machine has a card for every rank, else card 0.
+With ``tp > 1`` and no started process group, or one of another size, the
+engine raises; it never serves as one rank. The draft model of
+speculative decoding is not split, as in the reference: every rank runs
+all of it. A front end that takes requests on one rank and drives the
+others belongs to the serve layer and is not here.
+
+Not ported yet (it raises ``NotImplementedError``): the disaggregated
+prefill/decode handoff.
 """
 
 from __future__ import annotations
@@ -66,6 +89,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
 from ray_tpu_torch.llm.block_manager import BlockManager
@@ -73,6 +97,7 @@ from ray_tpu_torch.llm.config import LLMConfig, SamplingParams
 from ray_tpu_torch.llm.spec_decode import SpecDecoder
 from ray_tpu_torch.llm.tokenizer import ByteTokenizer
 from ray_tpu_torch.models import convert, gpt2, gpt2_decode, llama, llama_decode, paged
+from ray_tpu_torch.parallel.mesh import Mesh, MeshSpec, local_mesh, make_mesh
 from ray_tpu_torch.util import flightrec as _flightrec
 from ray_tpu_torch.util import metrics as _metrics
 from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
@@ -154,6 +179,35 @@ def _model_ops(cfg):
     return gpt2, gpt2_decode, convert.gpt2_params_from_numpy
 
 
+def _tp_mesh(tp: int, device: torch.device) -> tuple[torch.device, Mesh]:
+    """(this rank's device, the ``MeshSpec(tp=tp)`` mesh over the caller's
+    process group); the given device and the one-rank mesh at ``tp=1``.
+    On the card, an unindexed ``"cuda"`` becomes ``cuda:rank`` where the
+    machine has ``tp`` cards, else card 0 (ranks over gloo sharing it)."""
+    if tp == 1:
+        return device, local_mesh()
+    if not dist.is_initialized():
+        raise RuntimeError(
+            f"tensor_parallelism={tp} needs a started process group of {tp} ranks "
+            "(torch.distributed.init_process_group), one process per rank"
+        )
+    if dist.get_world_size() != tp:
+        raise ValueError(
+            f"tensor_parallelism={tp} but the process group has {dist.get_world_size()} ranks"
+        )
+    if device.type == "cuda":
+        cards = torch.cuda.device_count()
+        if dist.get_backend() == "nccl" and cards < tp:
+            raise ValueError(
+                f"NCCL needs a card for each of the {tp} ranks, and this machine has {cards}: "
+                "start a gloo process group to share a card"
+            )
+        if device.index is None:
+            device = torch.device("cuda", dist.get_rank() if cards >= tp else 0)
+        torch.cuda.set_device(device)
+    return device, make_mesh(MeshSpec(tp=tp), device.type)
+
+
 @dataclasses.dataclass
 class _Request:
     request_id: str
@@ -192,14 +246,16 @@ class LLMEngine:
         device: "str | torch.device" = "cuda",
     ):
         """``device`` is the card unless the caller asks for ``"cpu"``; a
-        CUDA request with no GPU raises."""
-        if config.tensor_parallelism > 1:
-            raise NotImplementedError("tensor parallelism is not ported yet")
-        self.device = resolve_device(device)
+        CUDA request with no GPU raises. With ``tensor_parallelism > 1``
+        the caller's process group must have that many ranks (see the
+        module docstring); a config whose heads, vocabulary or MLP width
+        the degree does not split raises ``ValueError``."""
+        device = resolve_device(device)
         set_exact_matmul()
         self.config = config
         self.tokenizer = tokenizer or ByteTokenizer()
         cfg = config.build_model_config()
+        self.device, self.mesh = _tp_mesh(config.tensor_parallelism, device)
         if cfg.vocab_size < self.tokenizer.vocab_size:
             raise ValueError("model vocab smaller than tokenizer vocab")
         self._model, self._decode_mod, from_numpy = _model_ops(cfg)
@@ -213,12 +269,17 @@ class LLMEngine:
             )
         self.model_config = cfg
 
+        # Each rank keeps its part of every leaf (all of it at tp=1). Random
+        # weights are drawn whole on the engine's device, as at tp=1, so a
+        # seed gives the same model at every degree.
         if config.weights_path:
             with open(config.weights_path, "rb") as f:
-                params = from_numpy(pickle.load(f), cfg, self.device)
+                params = from_numpy(pickle.load(f), cfg, self.device, mesh=self.mesh)
         else:
             gen = torch.Generator(device=self.device).manual_seed(config.seed)
-            params = self._model.init_params(gen, cfg, self.device)
+            whole = self._model.init_params(gen, cfg, self.device)
+            params = convert.tp_shard(whole, cfg, self.mesh)
+            del whole
         self.params = params
         # Matmul weights cast once to the activation dtype (the reference
         # casts per matmul; the values are identical).
@@ -240,12 +301,14 @@ class LLMEngine:
                 (B * self._table_width) // 2, self._table_width + 1
             ) + 1  # +1: block 0 is scratch
             self.block_mgr = BlockManager(n)
-            self.pool = paged.init_block_pool(cfg, n, bs, device=self.device)
+            self.pool = paged.init_block_pool(cfg, n, bs, device=self.device, mesh=self.mesh)
             self.block_tables = np.zeros((B, self._table_width), np.int32)
             # The family's hook table (and Llama's RoPE tables), built once.
-            self._hooks = paged._family(cfg, S, self.device)
+            self._hooks = paged._family(cfg, S, self.device, self.mesh)
         else:
-            self.cache = self._decode_mod.init_kv_cache(cfg, B, S, device=self.device)
+            self.cache = self._decode_mod.init_kv_cache(
+                cfg, B, S, device=self.device, mesh=self.mesh
+            )
         # Prefix pool: key (chunk-aligned token tuple hash, length) ->
         # {"len", "used", "tokens"} and, dense, {"k","v": [L, 1, KH, P, Dh]
         # tensors}; paged, {"blocks": the shared block ids}. LRU within
@@ -317,6 +380,7 @@ class LLMEngine:
             self._h2d([length]),
             self._slot_view(slot),
             self.model_config,
+            self.mesh,
         )
         return logits[0]
 
@@ -331,6 +395,7 @@ class LLMEngine:
             start,
             self._slot_view(slot),
             self.model_config,
+            self.mesh,
         )
         return logits[0]
 
@@ -351,8 +416,8 @@ class LLMEngine:
         return logits
 
     def _copy_prefix_in_impl(self, pk, pv, slot: int) -> None:
-        """Write a pooled prefix ([L, 1, KH, P, Dh]) into a slot's rows
-        [0, P), in place."""
+        """Write a pooled prefix ([L, 1, KH, P, Dh], this rank's KV heads)
+        into a slot's rows [0, P), in place."""
         P = pk.shape[3]
         self.cache["k"][:, slot : slot + 1, :, :P] = pk
         self.cache["v"][:, slot : slot + 1, :, :P] = pv
@@ -864,8 +929,9 @@ class LLMEngine:
                     self._h2d(self.positions),
                     self.cache,
                     self.model_config,
+                    self.mesh,
                 )
-            logits_np = self._d2h(logits)  # the decode step's one readback
+            logits_np = self._d2h(logits)  # the decode step's one readback (whole over tp)
             now = _time.perf_counter()
             for req in active:
                 slot = req.slot

@@ -10,6 +10,12 @@ target forward. Greedy verification gives the tokens vanilla decode
 gives: every accepted token is the argmax the vanilla loop would have
 produced in turn.
 
+Under tensor parallelism the draft is not split, as in the reference
+(``ray_tpu/llm/spec_decode.py:160-172`` places no sharding on it): every
+rank runs the whole draft with its own whole draft KV, and so proposes the
+same tokens; the target's verify runs over the rank's heads, its logits
+gathered whole, so every rank accepts the same ones.
+
 The draft **shares the engine's block ids**: in paged mode its KV is a
 parallel pool indexed by the same block tables, sized by the draft's own
 layers and heads (prefix-shared blocks hold the same draft KV whoever
@@ -142,7 +148,7 @@ class SpecDecoder:
             self.cache = self._decode_mod.init_kv_cache(
                 draft_cfg, engine.config.max_slots, S, device=dev
             )
-            self._verify_hooks = paged._family(target_cfg, S, dev)
+            self._verify_hooks = paged._family(target_cfg, S, dev, engine.mesh)
 
     # -- draft prefill --------------------------------------------------------
 

@@ -18,7 +18,9 @@ ZeRO-3 gather of a leaf where it is used, inside its layer's remat region,
 and :func:`reshard_after_forward` keeps autograd from holding a gathered
 weight until backward (it is gathered again there). The ``tp`` axis splits
 the vocabulary: :func:`vocab_parallel_embed` and the loss
-(:class:`_VocabParallelCE`) never build a whole ``[B, S, V]``.
+(:class:`_VocabParallelCE`) never build a whole ``[B, S, V]``; serving
+gathers each rank's logits of its vocabulary shard whole
+(:func:`gather_vocab`), since it samples on the host.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from ray_tpu_torch.ops.attention import uses_flash_kernel
 from ray_tpu_torch.parallel.mesh import Mesh, check_ported_axes, local_mesh
 from ray_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
+    all_gather,
     all_gather_dim,
     all_reduce,
     all_reduce_,
@@ -360,3 +363,15 @@ def vocab_parallel_embed(wte: torch.Tensor, tokens: torch.Tensor, mesh: Mesh) ->
     own = (local >= 0) & (local < V)
     rows = torch.where(own[..., None], wte[local.clamp(0, V - 1)], 0.0)
     return all_reduce(rows, mesh, "tp", grad="identity")
+
+
+def gather_vocab(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole logits ``[..., V]`` from every rank's columns ``[...,
+    V/tp]`` of the vocabulary under ``tp``, in rank order (``logits``
+    itself where ``tp`` has size 1). A gather moves bits and sums nothing,
+    so every rank holds the same result bit for bit. Carries no gradient:
+    the serving paths' readback."""
+    if mesh.size("tp") == 1:
+        return logits
+    parts = all_gather(logits.contiguous(), mesh, "tp")  # [tp, ..., V/tp]
+    return torch.cat(parts.unbind(0), dim=-1)

@@ -4,6 +4,10 @@ The caller turns the reference's pytree into numpy first (for example
 ``jax.tree.map(np.asarray, params)``, or a pickled checkpoint of the same),
 so this module needs neither jax nor ml_dtypes: a bf16 array
 (``ml_dtypes.bfloat16``) is reinterpreted through a ``uint16`` view.
+
+Given a mesh whose ``tp`` axis has size > 1, each converter keeps only this
+rank's part of each leaf for the serving engine (:func:`tp_shard`): the
+whole tree is built on the CPU and only the rank's parts reach ``device``.
 """
 
 from __future__ import annotations
@@ -11,8 +15,17 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ray_tpu_torch.models import gpt2, llama
 from ray_tpu_torch.models.gpt2 import GPT2Config
 from ray_tpu_torch.models.llama import LlamaConfig
+from ray_tpu_torch.parallel.mesh import Mesh
+from ray_tpu_torch.parallel.sharding import (
+    DEFAULT_RULES,
+    NamedSharding,
+    P,
+    shard_tree,
+    shardings_from_logical,
+)
 from ray_tpu_torch.util.device import resolve_device
 
 
@@ -99,17 +112,72 @@ def _from_numpy(tree: dict, spec: dict, device) -> dict:
     return walk(tree, spec, "")
 
 
-def gpt2_params_from_numpy(tree: dict, cfg: GPT2Config, device="cuda") -> dict:
+def tp_shard(params: dict, cfg, mesh: Mesh) -> dict:
+    """This rank's part of every leaf of the whole tree ``params`` for
+    serving under ``mesh``'s ``tp`` axis (``params`` itself where ``tp``
+    has size 1). The blocks are ``DEFAULT_RULES``' (the vocabulary, the
+    MLP's columns and rows, the attention output's rows, Llama's ``wq``
+    by heads and ``lm_head`` by vocabulary), with one difference for each
+    family: GPT-2's fused ``qkv_w``/``qkv_b`` keep this rank's heads' q, k
+    and v columns (:func:`~ray_tpu_torch.models.gpt2.heads_columns`; the
+    rule's contiguous column block is not a block of heads), and Llama's
+    ``wk``/``wv``, whole under the rule, keep the columns of the KV heads
+    this rank's query heads read (:func:`~ray_tpu_torch.models.llama._kv_heads`).
+    So the serving path takes its heads once, at load, and gathers nothing
+    per layer. Split leaves are compact copies on the leaves' device."""
+    tp = mesh.size("tp")
+    if tp == 1:
+        return params
+    family = llama if isinstance(cfg, LlamaConfig) else gpt2
+    shardings = shardings_from_logical(family.param_logical_specs(cfg), DEFAULT_RULES, mesh)
+    heads = ("wk", "wv") if family is llama else ("qkv_w", "qkv_b")
+    whole = NamedSharding(mesh, P())
+    shardings["blocks"].update(dict.fromkeys(heads, whole))
+    out = shard_tree(params, shardings)
+    if family is llama:
+        lo, hi = llama._kv_heads(cfg, mesh)
+        Dh = cfg.head_dim
+
+        def own(t):
+            return t[..., lo * Dh : hi * Dh]
+
+    else:
+
+        def own(t):
+            return gpt2.heads_columns(t, cfg, tp, mesh.coordinate("tp"))
+
+    out["blocks"] = dict(out["blocks"], **{k: own(params["blocks"][k]).clone() for k in heads})
+    return out
+
+
+def _load(tree: dict, spec: dict, cfg, device, mesh: Mesh | None) -> dict:
+    if mesh is None or mesh.size("tp") == 1:
+        return _from_numpy(tree, spec, device)
+    device = resolve_device(device)
+    local = tp_shard(_from_numpy(tree, spec, "cpu"), cfg, mesh)
+
+    def to(node):
+        return {k: to(v) if isinstance(v, dict) else v.to(device) for k, v in node.items()}
+
+    return to(local)
+
+
+def gpt2_params_from_numpy(
+    tree: dict, cfg: GPT2Config, device="cuda", mesh: Mesh | None = None
+) -> dict:
     """The reference's GPT-2 params (numpy leaves; dense, or mixture-of-
     experts when ``cfg.n_experts > 0``) as torch tensors on ``device`` (the
     card unless the caller asks for ``"cpu"``; a CUDA request with no GPU
     raises), key for key and in their own dtype. Raises on a missing or
-    extra key or a shape that ``cfg`` does not expect."""
-    return _from_numpy(tree, _gpt2_expected_shapes(cfg), device)
+    extra key or a shape that ``cfg`` does not expect. With ``mesh``, only
+    this rank's serving part of each leaf (:func:`tp_shard`)."""
+    return _load(tree, _gpt2_expected_shapes(cfg), cfg, device, mesh)
 
 
-def llama_params_from_numpy(tree: dict, cfg: LlamaConfig, device="cuda") -> dict:
+def llama_params_from_numpy(
+    tree: dict, cfg: LlamaConfig, device="cuda", mesh: Mesh | None = None
+) -> dict:
     """The reference's Llama params (numpy leaves) as torch tensors on
-    ``device``, with the same checks and bf16 handling as
+    ``device``, with the same checks, bf16 handling and ``mesh`` as
     :func:`gpt2_params_from_numpy`."""
-    return _from_numpy(tree, _llama_expected_shapes(cfg), device)
+    return _load(tree, _llama_expected_shapes(cfg), cfg, device, mesh)

@@ -311,11 +311,16 @@ def _own_heads(t: torch.Tensor, cfg: GPT2Config, mesh: Mesh) -> torch.Tensor:
     tp = mesh.size("tp")
     if tp == 1:
         return t
+    return heads_columns(all_gather_dim(t, mesh, "tp", -1), cfg, tp, mesh.coordinate("tp"))
+
+
+def heads_columns(whole: torch.Tensor, cfg: GPT2Config, tp: int, rank: int) -> torch.Tensor:
+    """Columns ``[..., 3D/tp]`` of the whole fused ``qkv`` leaf ``whole``
+    (``[..., 3D]``: q, k, v, each head-major) that hold rank ``rank``'s
+    heads ``[rank*H/tp, (rank+1)*H/tp)`` of q, k and v, in that order."""
     if cfg.n_head % tp:
         raise ValueError(f"n_head={cfg.n_head} does not split over tp={tp}")
-    whole = all_gather_dim(t, mesh, "tp", -1)
-    own = whole.unflatten(-1, (3, tp, cfg.d_model // tp)).select(-2, mesh.coordinate("tp"))
-    return own.flatten(-2)
+    return whole.unflatten(-1, (3, tp, cfg.d_model // tp)).select(-2, rank).flatten(-2)
 
 
 def _attn_weights(p, cfg: GPT2Config, mesh: Mesh, dims: dict) -> dict:

@@ -15,6 +15,15 @@ update ``cache`` **in place** (no second 1.2 GB cache at full width) and
 return it for the same call shape. Out-of-range writes raise: the
 reference's ``dynamic_update_slice`` would clamp the start and shift the
 cache silently.
+
+Under a mesh whose ``tp`` axis has size > 1 (the serving engine's; the
+reference shards the same einsums through XLA) each rank holds its heads
+(``params`` from :func:`ray_tpu_torch.models.convert.tp_shard`): the cache
+carries ``n_head / tp`` heads, the embedding is vocab-parallel, the
+attention output and the MLP output are each summed by one all-reduce with
+``proj_b`` and ``fc2_b`` added once after the sum, and the logits of each
+rank's vocabulary shard are gathered whole, so every rank returns the same
+logits. Every function takes its head count from the weights or the cache.
 """
 
 from __future__ import annotations
@@ -22,8 +31,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ray_tpu_torch.models.common import gather_vocab, vocab_parallel_embed
 from ray_tpu_torch.models.gpt2 import GPT2Config, _layer_norm, layer_params
 from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.parallel.mesh import Mesh, local_mesh
+from ray_tpu_torch.parallel.sharding import all_reduce_
 
 Params = dict
 
@@ -34,15 +46,24 @@ def init_kv_cache(
     max_seq: int | None = None,
     *,
     device: "str | torch.device",
+    mesh: Mesh = local_mesh(),
 ):
     """Zeroed cache: {"k","v"}: [L, B, H, S, Dh] in the activation dtype,
-    on ``device`` (no default: the caller names where the cache lives)."""
+    on ``device`` (no default: the caller names where the cache lives);
+    H is this rank's heads under ``mesh`` (:func:`local_heads`)."""
     S = max_seq or cfg.max_seq
-    shape = (cfg.n_layer, n_slots, cfg.n_head, S, cfg.head_dim)
+    shape = (cfg.n_layer, n_slots, local_heads(cfg, mesh)[1], S, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
     }
+
+
+def local_heads(cfg: GPT2Config, mesh: Mesh) -> tuple[int, int]:
+    """(query heads, KV heads) of one rank under ``mesh``'s ``tp``: both
+    ``n_head / tp`` (multi-head attention)."""
+    H = cfg.n_head // mesh.size("tp")
+    return H, H
 
 
 def _check_dense(cfg: GPT2Config) -> None:
@@ -51,37 +72,46 @@ def _check_dense(cfg: GPT2Config) -> None:
 
 
 def _qkv(x, p, cfg):
-    B, T, D = x.shape
+    B, T, _ = x.shape
     h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     qkv = h @ p["qkv_w"].to(cfg.dtype) + p["qkv_b"].to(cfg.dtype)
-    q, k, v = qkv.split(D, dim=-1)
+    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)  # this rank's heads' columns
 
     def heads(t):
-        return t.reshape(B, T, cfg.n_head, cfg.head_dim).transpose(1, 2)
+        return t.reshape(B, T, -1, cfg.head_dim).transpose(1, 2)
 
     return heads(q), heads(k), heads(v)
 
 
-def _finish_block(x, attn, p, cfg):
+def _finish_block(x, attn, p, cfg, mesh: Mesh = local_mesh()):
+    """The attention output projection and the MLP. Under ``tp`` each
+    product over this rank's rows is a partial sum: one all-reduce each,
+    and the row biases added once, after it."""
     B, H, T, Dh = attn.shape
     attn = attn.transpose(1, 2).reshape(B, T, H * Dh)
-    x = x + attn @ p["proj_w"].to(cfg.dtype) + p["proj_b"].to(cfg.dtype)
+    x = x + all_reduce_(attn @ p["proj_w"].to(cfg.dtype), mesh, "tp") + p["proj_b"].to(cfg.dtype)
     h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
     h = h @ p["fc_w"].to(cfg.dtype) + p["fc_b"].to(cfg.dtype)
     h = F.gelu(h, approximate="tanh")
-    return x + h @ p["fc2_w"].to(cfg.dtype) + p["fc2_b"].to(cfg.dtype)
+    return x + all_reduce_(h @ p["fc2_w"].to(cfg.dtype), mesh, "tp") + p["fc2_b"].to(cfg.dtype)
 
 
-def _logits(params, x, cfg):
-    """Final LN and the tied LM head: hidden states [..., D] -> f32 logits."""
+def _embed(params, tokens, cfg, mesh: Mesh):
+    """Token embeddings (vocab-parallel under ``tp``), without positions."""
+    return vocab_parallel_embed(params["wte"].to(cfg.dtype), tokens, mesh)
+
+
+def _logits(params, x, cfg, mesh: Mesh = local_mesh()):
+    """Final LN and the tied LM head: hidden states [..., D] -> f32 logits,
+    gathered whole over ``tp``."""
     x = _layer_norm(x, params["lnf_scale"], params["lnf_bias"])
-    return (x @ params["wte"].to(cfg.dtype).T).float()
+    return gather_vocab((x @ params["wte"].to(cfg.dtype).T).float(), mesh)
 
 
-def _last_logits(params, x, lengths, cfg):
+def _last_logits(params, x, lengths, cfg, mesh: Mesh):
     """Logits of the hidden state after token lengths[b]-1 of each row."""
     idx = (lengths - 1).long()[:, None, None].expand(-1, 1, x.shape[-1])
-    return _logits(params, torch.gather(x, 1, idx)[:, 0], cfg)  # [B, vocab]
+    return _logits(params, torch.gather(x, 1, idx)[:, 0], cfg, mesh)  # [B, vocab]
 
 
 def prefill(
@@ -90,6 +120,7 @@ def prefill(
     lengths: torch.Tensor,  # [B] true prompt lengths (<= T)
     cache,
     cfg: GPT2Config,
+    mesh: Mesh = local_mesh(),
 ):
     """Process prompts, fill cache[:, :, :, :T] in place, return
     (cache, last_logits [B, vocab] f32).
@@ -101,16 +132,16 @@ def prefill(
     B, T = tokens.shape
     if T > cache["k"].shape[3]:
         raise ValueError(f"prefill of {T} rows does not fit a cache of {cache['k'].shape[3]}")
-    x = params["wte"].to(cfg.dtype)[tokens]
+    x = _embed(params, tokens, cfg, mesh)
     x = x + params["wpe"].to(cfg.dtype)[:T][None]
     for i in range(cfg.n_layer):
         p = layer_params(params, i)
         q, k, v = _qkv(x, p, cfg)
         attn = causal_attention(q, k, v, impl=cfg.attn_impl)
-        x = _finish_block(x, attn, p, cfg)
+        x = _finish_block(x, attn, p, cfg, mesh)
         cache["k"][i, :, :, :T] = k
         cache["v"][i, :, :, :T] = v
-    return cache, _last_logits(params, x, lengths, cfg)
+    return cache, _last_logits(params, x, lengths, cfg, mesh)
 
 
 def prefill_continue(
@@ -120,6 +151,7 @@ def prefill_continue(
     start: int,  # cached prefix length: rows [0, start) are already valid
     cache,
     cfg: GPT2Config,
+    mesh: Mesh = local_mesh(),
 ):
     """Prefill positions [start, start+T) on top of an existing cache
     prefix. Each new token attends over the full cache row with the mask
@@ -133,7 +165,7 @@ def prefill_continue(
     if start < 0 or start + T > S:
         raise ValueError(f"rows [{start}, {start + T}) do not fit a cache of {S}")
     dev = tokens.device
-    x = params["wte"].to(cfg.dtype)[tokens]
+    x = _embed(params, tokens, cfg, mesh)
     x = x + params["wpe"].to(cfg.dtype)[start : start + T][None]
 
     cols = torch.arange(S, device=dev)
@@ -150,8 +182,8 @@ def prefill_continue(
         s = torch.where(mask[None, None], s, -1e30)
         pattn = torch.softmax(s, dim=-1).to(cv.dtype)
         attn = torch.einsum("bhts,bhsd->bhtd", pattn, cv)
-        x = _finish_block(x, attn, p, cfg)
-    return cache, _last_logits(params, x, lengths, cfg)
+        x = _finish_block(x, attn, p, cfg, mesh)
+    return cache, _last_logits(params, x, lengths, cfg, mesh)
 
 
 def decode_step(
@@ -160,16 +192,16 @@ def decode_step(
     positions: torch.Tensor,  # [B] int: where last_tokens goes in the cache
     cache,
     cfg: GPT2Config,
+    mesh: Mesh = local_mesh(),
 ):
     """One token per slot: write kv at ``positions`` (in place), attend
     over the prefix, return (cache, logits [B, vocab] f32)."""
     _check_dense(cfg)
     B = last_tokens.shape[0]
-    S = cache["k"].shape[3]
-    H = cfg.n_head
+    H, S = cache["k"].shape[2:4]  # this rank's heads
     dev = last_tokens.device
     positions = positions.long()
-    x = params["wte"].to(cfg.dtype)[last_tokens]  # [B, D]
+    x = _embed(params, last_tokens, cfg, mesh)  # [B, D]
     x = x + params["wpe"].to(cfg.dtype)[positions]
     x = x[:, None, :]  # [B, 1, D]
 
@@ -189,5 +221,5 @@ def decode_step(
         s = torch.where(mask[:, None, :], s, -1e30)
         pattn = torch.softmax(s, dim=-1).to(cv.dtype)
         attn = torch.einsum("bhs,bhsd->bhd", pattn, cv)[:, :, None, :]
-        x = _finish_block(x, attn, p, cfg)
-    return cache, _logits(params, x[:, 0], cfg)
+        x = _finish_block(x, attn, p, cfg, mesh)
+    return cache, _logits(params, x[:, 0], cfg, mesh)

@@ -15,14 +15,24 @@ The cache stores the ``n_kv_head`` heads unexpanded, ``[L, B, KH, S, Dh]``,
 As in :mod:`ray_tpu_torch.models.gpt2_decode`, the cache is updated **in
 place** and returned for the reference's call shape, and a write that
 does not fit the cache raises where the reference would clamp it.
+
+Under a mesh whose ``tp`` axis has size > 1 each rank holds its query
+heads and the KV heads they read (:func:`local_heads`; ``params`` from
+:func:`ray_tpu_torch.models.convert.tp_shard`): the cache carries those KV
+heads only, the embedding is vocab-parallel, ``wo``'s and ``w_down``'s
+partial products are each summed by one all-reduce, and the logits of each
+rank's ``lm_head`` columns are gathered whole. Head counts come from the
+projections and the cache.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ray_tpu_torch.models.common import gather_vocab, vocab_parallel_embed
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
+    _kv_heads,
     _mlp_sublayer,
     _qkv_rope,
     _rms_norm,
@@ -31,6 +41,8 @@ from ray_tpu_torch.models.llama import (
     rope_tables,
 )
 from ray_tpu_torch.ops.attention import causal_attention
+from ray_tpu_torch.parallel.mesh import Mesh, local_mesh
+from ray_tpu_torch.parallel.sharding import all_reduce_
 
 Params = dict
 
@@ -41,35 +53,54 @@ def init_kv_cache(
     max_seq: int | None = None,
     *,
     device: "str | torch.device",
+    mesh: Mesh = local_mesh(),
 ):
     """Zeroed cache: {"k","v"}: [L, B, KH, S, Dh] (unexpanded GQA) in the
     activation dtype, on ``device`` (no default: the caller names where the
-    cache lives)."""
+    cache lives); KH is the KV heads this rank reads under ``mesh``."""
     S = max_seq or cfg.max_seq
-    shape = (cfg.n_layer, n_slots, cfg.n_kv_head, S, cfg.head_dim)
+    shape = (cfg.n_layer, n_slots, local_heads(cfg, mesh)[1], S, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
         "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
     }
 
 
-def _attn_out(x, attn, p, cfg: LlamaConfig):
-    """Merge heads ``[B, H, T, Dh]``, project, add, then the MLP sublayer."""
-    B, _, T, _ = attn.shape
-    x = x + attn.transpose(1, 2).reshape(B, T, cfg.d_model) @ p["wo"].to(cfg.dtype)
-    return _mlp_sublayer(x, p, cfg)
+def local_heads(cfg: LlamaConfig, mesh: Mesh) -> tuple[int, int]:
+    """(query heads, KV heads) of one rank under ``mesh``'s ``tp``: its
+    ``n_head / tp`` query heads and the KV heads they read
+    (:func:`~ray_tpu_torch.models.llama._kv_heads`; ranks whose query heads
+    share one KV head each hold it)."""
+    lo, hi = _kv_heads(cfg, mesh)
+    return cfg.n_head // mesh.size("tp"), hi - lo
 
 
-def _logits(params, x, cfg: LlamaConfig):
-    """Final RMSNorm and the LM head: hidden states [..., D] -> f32 logits."""
+def _attn_out(x, attn, p, cfg: LlamaConfig, mesh: Mesh = local_mesh()):
+    """Merge heads ``[B, H, T, Dh]``, project, add, then the MLP sublayer;
+    under ``tp`` both ``wo``'s and ``w_down``'s partial products are
+    summed by one all-reduce each."""
+    B, H, T, Dh = attn.shape
+    out = attn.transpose(1, 2).reshape(B, T, H * Dh) @ p["wo"].to(cfg.dtype)
+    x = x + all_reduce_(out, mesh, "tp")
+    return _mlp_sublayer(x, p, cfg, mesh)
+
+
+def _embed(params, tokens, cfg: LlamaConfig, mesh: Mesh):
+    """Token embeddings, vocab-parallel under ``tp``."""
+    return vocab_parallel_embed(params["wte"].to(cfg.dtype), tokens, mesh)
+
+
+def _logits(params, x, cfg: LlamaConfig, mesh: Mesh = local_mesh()):
+    """Final RMSNorm and the LM head: hidden states [..., D] -> f32 logits,
+    gathered whole over ``tp``."""
     x = _rms_norm(x, params["final_norm"], cfg.rms_eps)
-    return (x @ params["lm_head"].to(cfg.dtype)).float()
+    return gather_vocab((x @ params["lm_head"].to(cfg.dtype)).float(), mesh)
 
 
-def _last_logits(params, x, lengths, cfg: LlamaConfig):
+def _last_logits(params, x, lengths, cfg: LlamaConfig, mesh: Mesh):
     """Logits of the hidden state after token lengths[b]-1 of each row."""
     idx = (lengths - 1).long()[:, None, None].expand(-1, 1, x.shape[-1])
-    return _logits(params, torch.gather(x, 1, idx)[:, 0], cfg)  # [B, vocab]
+    return _logits(params, torch.gather(x, 1, idx)[:, 0], cfg, mesh)  # [B, vocab]
 
 
 def prefill(
@@ -78,25 +109,26 @@ def prefill(
     lengths: torch.Tensor,  # [B] true prompt lengths (<= T)
     cache,
     cfg: LlamaConfig,
+    mesh: Mesh = local_mesh(),
 ):
     """Fill cache[:, :, :, :T] in place; return (cache, last_logits
     [B, vocab] f32). All T rows are written, padding included."""
     B, T = tokens.shape
     if T > cache["k"].shape[3]:
         raise ValueError(f"prefill of {T} rows does not fit a cache of {cache['k'].shape[3]}")
-    group = cfg.n_head // cfg.n_kv_head
-    x = params["wte"].to(cfg.dtype)[tokens]
+    x = _embed(params, tokens, cfg, mesh)
     cos, sin = rope_tables(cfg, T, tokens.device)
     for i in range(cfg.n_layer):
         p = layer_params(params, i)
         q, k, v = _qkv_rope(x, p, cfg, cos, sin)
+        group = q.shape[1] // k.shape[1]
         attn = causal_attention(
             q, expand_kv(k, group), expand_kv(v, group), impl=cfg.attn_impl
         )
-        x = _attn_out(x, attn, p, cfg)
+        x = _attn_out(x, attn, p, cfg, mesh)
         cache["k"][i, :, :, :T] = k
         cache["v"][i, :, :, :T] = v
-    return cache, _last_logits(params, x, lengths, cfg)
+    return cache, _last_logits(params, x, lengths, cfg, mesh)
 
 
 def prefill_continue(
@@ -106,6 +138,7 @@ def prefill_continue(
     start: int,  # cached prefix length: rows [0, start) are already valid
     cache,
     cfg: LlamaConfig,
+    mesh: Mesh = local_mesh(),
 ):
     """Prefill positions [start, start+T) over an existing cache prefix:
     each new token attends over the full cache row under the mask
@@ -115,10 +148,9 @@ def prefill_continue(
     S = cache["k"].shape[3]
     if start < 0 or start + T > S:
         raise ValueError(f"rows [{start}, {start + T}) do not fit a cache of {S}")
-    H, KH, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
-    group = H // KH
+    KH, Dh = cache["k"].shape[2], cfg.head_dim  # this rank's KV heads
     dev = tokens.device
-    x = params["wte"].to(cfg.dtype)[tokens]
+    x = _embed(params, tokens, cfg, mesh)
     cos_full, sin_full = rope_tables(cfg, S, dev)
     cos, sin = cos_full[start : start + T], sin_full[start : start + T]
 
@@ -132,13 +164,13 @@ def prefill_continue(
         q, k, v = _qkv_rope(x, p, cfg, cos, sin)
         ck[:, :, start : start + T] = k
         cv[:, :, start : start + T] = v
-        qg = q.reshape(B, KH, group, T, Dh)
+        qg = q.reshape(B, KH, -1, T, Dh)  # [B, KH, group, T, Dh]
         s = torch.einsum("bkgtd,bksd->bkgts", qg, ck).float() * scale
         s = torch.where(mask, s, -1e30)
         pattn = torch.softmax(s, dim=-1).to(cv.dtype)
-        attn = torch.einsum("bkgts,bksd->bkgtd", pattn, cv).reshape(B, H, T, Dh)
-        x = _attn_out(x, attn, p, cfg)
-    return cache, _last_logits(params, x, lengths, cfg)
+        attn = torch.einsum("bkgts,bksd->bkgtd", pattn, cv).reshape(B, -1, T, Dh)
+        x = _attn_out(x, attn, p, cfg, mesh)
+    return cache, _last_logits(params, x, lengths, cfg, mesh)
 
 
 def decode_step(
@@ -147,17 +179,17 @@ def decode_step(
     positions: torch.Tensor,  # [B] int: where last_tokens goes in the cache
     cache,
     cfg: LlamaConfig,
+    mesh: Mesh = local_mesh(),
 ):
     """One token per slot with the grouped (unexpanded) cache: write k/v at
     ``positions`` in place, attend over the prefix, return (cache, logits
     [B, vocab] f32)."""
     B = last_tokens.shape[0]
-    S = cache["k"].shape[3]
-    H, KH, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
-    group = H // KH
+    KH, S = cache["k"].shape[2:4]  # this rank's KV heads
+    Dh = cfg.head_dim
     dev = last_tokens.device
     positions = positions.long()
-    x = params["wte"].to(cfg.dtype)[last_tokens][:, None, :]  # [B, 1, D]
+    x = _embed(params, last_tokens, cfg, mesh)[:, None, :]  # [B, 1, D]
     cos_full, sin_full = rope_tables(cfg, S, dev)
     cos, sin = cos_full[positions][:, None], sin_full[positions][:, None]  # [B, 1, Dh/2]
 
@@ -172,10 +204,10 @@ def decode_step(
         q, k, v = _qkv_rope(x, p, cfg, cos, sin)  # [B, {H,KH}, 1, Dh]
         ck[rows, kv_heads, pos] = k[:, :, 0, :]
         cv[rows, kv_heads, pos] = v[:, :, 0, :]
-        qg = q[:, :, 0, :].reshape(B, KH, group, Dh)
+        qg = q[:, :, 0, :].reshape(B, KH, -1, Dh)  # [B, KH, group, Dh]
         s = torch.einsum("bkgd,bksd->bkgs", qg, ck).float() * scale
         s = torch.where(mask[:, None, None, :], s, -1e30)
         pattn = torch.softmax(s, dim=-1).to(cv.dtype)
-        attn = torch.einsum("bkgs,bksd->bkgd", pattn, cv).reshape(B, H, 1, Dh)
-        x = _attn_out(x, attn, p, cfg)
-    return cache, _logits(params, x[:, 0], cfg)
+        attn = torch.einsum("bkgs,bksd->bkgd", pattn, cv).reshape(B, -1, 1, Dh)
+        x = _attn_out(x, attn, p, cfg, mesh)
+    return cache, _logits(params, x[:, 0], cfg, mesh)

@@ -28,6 +28,12 @@ inside the table.
 Family dispatch (GPT-2: learned positions, multi-head; Llama: RoPE, GQA)
 is a small hook table built by :func:`_family`, once per engine; the rest
 is family-agnostic, because GQA with group 1 is multi-head attention.
+
+Under a mesh whose ``tp`` axis has size > 1 the pool holds this rank's KV
+heads and the hooks are the tensor-parallel ones of the family's decode
+module (vocab-parallel embedding, one all-reduce after each row-split
+product, logits gathered whole): the block ids, tables and masks are the
+same on every rank, so the host's block manager serves them all.
 """
 
 from __future__ import annotations
@@ -37,15 +43,19 @@ from typing import Callable, NamedTuple
 import torch
 
 from ray_tpu_torch.models import gpt2, gpt2_decode, llama, llama_decode
+from ray_tpu_torch.parallel.mesh import Mesh, local_mesh
 
 Params = dict
 
 
-def init_block_pool(cfg, num_blocks: int, block_size: int, *, device: "str | torch.device"):
+def init_block_pool(
+    cfg, num_blocks: int, block_size: int, *, device: "str | torch.device",
+    mesh: Mesh = local_mesh(),
+):
     """Zeroed pool {"k","v"}: [L, N, KH, block, Dh] in the activation
     dtype, on ``device``. KH is the KV-head count (unexpanded GQA for
-    Llama)."""
-    kh = getattr(cfg, "n_kv_head", None) or cfg.n_head
+    Llama) that this rank holds under ``mesh``."""
+    kh = _decode_module(cfg).local_heads(cfg, mesh)[1]
     shape = (cfg.n_layer, num_blocks, kh, block_size, cfg.head_dim)
     return {
         "k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -59,6 +69,10 @@ def init_block_pool(cfg, num_blocks: int, block_size: int, *, device: "str | tor
 
 def _is_llama(cfg) -> bool:
     return isinstance(cfg, llama.LlamaConfig)
+
+
+def _decode_module(cfg):
+    return llama_decode if _is_llama(cfg) else gpt2_decode
 
 
 class Hooks(NamedTuple):
@@ -75,39 +89,41 @@ class Hooks(NamedTuple):
     Dh: int
 
 
-def _family(cfg, S: int, device) -> Hooks:
-    """The hook table for ``cfg``'s family at cache length ``S``. Llama's
-    RoPE tables are computed here, once for all positions below S."""
+def _family(cfg, S: int, device, mesh: Mesh = local_mesh()) -> Hooks:
+    """The hook table for ``cfg``'s family at cache length ``S``, for this
+    rank's heads under ``mesh``. Llama's RoPE tables are computed here,
+    once for all positions below S."""
+    H, KH = _decode_module(cfg).local_heads(cfg, mesh)
+    Dh = cfg.head_dim
     if _is_llama(cfg):
-        H, KH, Dh = cfg.n_head, cfg.n_kv_head, cfg.head_dim
         cos_full, sin_full = llama.rope_tables(cfg, S, device)
 
         def embed(params, tokens, pos2d):
-            return params["wte"].to(cfg.dtype)[tokens]
+            return llama_decode._embed(params, tokens, cfg, mesh)
 
         def qkv(x, p, pos2d):
             return llama._qkv_rope(x, p, cfg, cos_full[pos2d], sin_full[pos2d])
 
         def finish(x, attn, p):
-            return llama_decode._attn_out(x, attn, p, cfg)
+            return llama_decode._attn_out(x, attn, p, cfg, mesh)
 
         def final(params, last):  # [..., D] -> [..., vocab] f32
-            return llama_decode._logits(params, last, cfg)
+            return llama_decode._logits(params, last, cfg, mesh)
 
     else:
-        H, KH, Dh = cfg.n_head, cfg.n_head, cfg.head_dim
 
         def embed(params, tokens, pos2d):
-            return params["wte"].to(cfg.dtype)[tokens] + params["wpe"].to(cfg.dtype)[pos2d]
+            wpe = params["wpe"].to(cfg.dtype)
+            return gpt2_decode._embed(params, tokens, cfg, mesh) + wpe[pos2d]
 
         def qkv(x, p, pos2d):
             return gpt2_decode._qkv(x, p, cfg)
 
         def finish(x, attn, p):
-            return gpt2_decode._finish_block(x, attn, p, cfg)
+            return gpt2_decode._finish_block(x, attn, p, cfg, mesh)
 
         def final(params, last):
-            return gpt2_decode._logits(params, last, cfg)
+            return gpt2_decode._logits(params, last, cfg, mesh)
 
     return Hooks(embed, qkv, finish, final, H, KH, Dh)
 

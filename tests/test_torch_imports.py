@@ -1,5 +1,6 @@
-"""The port stands alone: ``ray_tpu_torch``, ``chip_smoke.py`` and
-``torch_host_ab.py`` import neither jax nor anything of the JAX package, and importing the port builds
+"""The port stands alone: ``ray_tpu_torch``, ``chip_smoke.py``,
+``torch_host_ab.py`` and the rank workers of the gloo tests import neither
+jax nor anything of the JAX package, and importing the port builds
 nothing and pulls in no jax."""
 
 import ast
@@ -13,6 +14,8 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py",
     ROOT / "torch_host_ab.py",
+    ROOT / "tests" / "torch_parallel_worker.py",
+    ROOT / "tests" / "torch_llm_tp_worker.py",
 ]
 
 

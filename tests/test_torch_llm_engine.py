@@ -154,11 +154,16 @@ def test_sampled_streams_equal_jax(weights, kv_block_size):
 
 
 def test_unported_paths_raise(weights):
-    """Tensor parallelism, prefill_only and disaggregated handoffs still
-    raise, and so does the card's absence; the paged cache (the default,
-    ``kv_block_size=16``) builds."""
+    """A tensor-parallel degree that does not split the heads raises
+    ``ValueError`` naming the field, and one that does raises without a
+    process group (tensor parallelism is ported: tests/test_torch_llm_tp.py);
+    prefill_only and disaggregated handoffs still raise, and so does the
+    card's absence; the paged cache (the default, ``kv_block_size=16``)
+    builds."""
     _, pcfg, _ = weights
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="n_head=2"):
+        PEngine(PLLMConfig(model_config=pcfg, **{**SERVE, "tensor_parallelism": 3}), device="cpu")
+    with pytest.raises(RuntimeError, match="process group"):
         PEngine(PLLMConfig(model_config=pcfg, **{**SERVE, "tensor_parallelism": 2}), device="cpu")
     assert PLLMConfig().kv_block_size == 16 and PLLMConfig().num_kv_blocks is None
     eng = PEngine(PLLMConfig(model_config=pcfg, **{**SERVE, "kv_block_size": 16}), device="cpu")
