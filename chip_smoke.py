@@ -86,16 +86,26 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    GPT-2-125M under ``MeshSpec(tp=2)``, Llama-125M under
    ``MeshSpec(fsdp=2, tp=2)`` and MoE GPT-2 under ``MeshSpec(tp=2)`` (global
    batch [8, 1024] each), then GPT-2-125M under ``dp=2`` (batch [16,
-   1024]) and MoE under ``ep=2``. With a card for every rank the ranks run
-   over NCCL, one a card; with fewer (one H100), all on card 0 over a
+   1024]) and MoE under ``ep=2``; then the sequence and pipeline axes
+   (batch [8, 1024], 4 ranks each): GPT-2-125M under ``sp=2 x tp=2`` and
+   Llama-125M under ``fsdp=2 x sp=2``, both with the reference gate's
+   batch spec ``P(("dp", "fsdp"), "sp")`` (each rank its 512-position
+   block, attention over the ring: no kernel), and MoE GPT-2 under
+   ``pp=2 x ep=2`` with 2 microbatches (each stage 6 layers, the kernels
+   inside it at [4, 12, 1024, 64]). With a card for every rank the ranks
+   run over NCCL, one a card; with fewer (one H100), all on card 0 over a
    gloo group, which takes the CUDA tensors of every collective and
-   stages them through host memory (printed as each rank's
-   ``"transport"``). Each rank's loss and gradient norm are held to the
-   unsharded step's on card 0 within the training tolerances; each rank
+   stages them through host memory, while point-to-point (the ring and
+   the stages) the port stages through pinned host memory itself
+   (printed as each rank's ``"transport"``). Each rank's loss and
+   gradient norm are held to the unsharded step's on card 0 within the
+   training tolerances (for the pipelined MoE, the mean over its two
+   microbatches, each routed alone as the pipeline routes it); each rank
    then takes one full step with the launch counts zeroed just before
-   and read just after (12 + 12, MoE 24 + 12), and prints its peak memory
-   and the size of its state beside the unsharded step's. Ranks that
-   share one card are not speed evidence.
+   and read just after (12 + 12, MoE 24 + 12; 0 + 0 on the ring; 24 + 12
+   a stage of the pipelined MoE: 6 layers x 2 microbatches, "dots"), and
+   prints its peak memory and the size of its state beside the unsharded
+   step's. Ranks that share one card are not speed evidence.
 14. Tensor-parallel serving (``serve_tp``): ``LLMEngine`` with
    ``tensor_parallelism`` > 1, each rank a process (this script with
    ``--serve-rank``), placed as in phase 13: GPT-2-125M at ``tp=2`` on the
@@ -164,7 +174,15 @@ from ray_tpu_torch.llm import batch as llm_batch
 from ray_tpu_torch.models import common, gpt2, llama, paged
 from ray_tpu_torch.models.llama import LlamaConfig
 from ray_tpu_torch.ops import _build, attention
-from ray_tpu_torch.parallel import DEFAULT_RULES, MeshSpec, P, make_mesh, shardings_from_logical
+from ray_tpu_torch.parallel import (
+    DEFAULT_RULES,
+    Mesh,
+    MeshSpec,
+    P,
+    make_mesh,
+    p2p_transport,
+    shardings_from_logical,
+)
 from ray_tpu_torch.train import spmd
 from ray_tpu_torch.util import flightrec, metrics
 
@@ -1011,6 +1029,12 @@ def moe_train_config() -> "gpt2.GPT2Config":
     return cfg
 
 
+def moe_pp_train_config() -> "gpt2.GPT2Config":
+    """moe_train_config() as the reference gate's pipelined MoE runs
+    (__graft_entry__.py:189-197): GPipe over pp with 2 microbatches."""
+    return dataclasses.replace(moe_train_config(), pipeline_microbatches=2)
+
+
 def llama_train_config() -> LlamaConfig:
     """Llama-125M at full width with its defaults: remat="mlp",
     loss_chunk=128, bf16 activations, f32 masters."""
@@ -1122,14 +1146,14 @@ def routed_share(cfg, params, tokens) -> list[float]:
     router's per-expert counts, each capped at the capacity."""
     shares, inner = [], gpt2._moe_sublayer
 
-    def counting(x, p, cfg, mesh):
+    def counting(x, p, cfg, mesh, routing):
         h = gpt2._layer_norm(x, p["ln2_scale"], p["ln2_bias"]).reshape(-1, x.shape[-1])
         probs = torch.softmax((h.to(cfg.dtype) @ p["gate_w"].to(cfg.dtype)).float(), dim=-1)
         n = probs.shape[0]
         cap = max(int(cfg.expert_capacity_factor * n / cfg.n_experts), 1)
         counts = torch.bincount(probs.argmax(-1), minlength=cfg.n_experts)
         shares.append(counts.clamp(max=cap).sum().item() / n)
-        return inner(x, p, cfg, mesh)
+        return inner(x, p, cfg, mesh, routing)
 
     gpt2._moe_sublayer = counting
     try:
@@ -1147,24 +1171,51 @@ def routed_share(cfg, params, tokens) -> list[float]:
 MESH_JOIN_S = 600
 
 # The sharded cases (train_shard): name -> (config, MeshSpec fields, global
-# batch rows). Each runs one process per rank: over NCCL one rank per card
-# where the machine has a card for every rank, else every rank on card 0
-# over a gloo group (NCCL refuses two ranks on one device). Each is held
-# to the unsharded step on card 0 within the training tolerances. The last
-# two are the dp and ep cases of the parallel layer's first slice.
+# batch rows, batch spec). Each runs one process per rank: over NCCL one
+# rank per card where the machine has a card for every rank, else every
+# rank on card 0 over a gloo group (NCCL refuses two ranks on one device).
+# Each is held to the unsharded step on card 0 within the training
+# tolerances. The dp and ep cases are the parallel layer's first slice's;
+# the last three run the sp axis (ring attention, the reference gate's
+# batch spec) and the pp axis (GPipe, the experts of each stage over ep).
+ROW_SPEC = (("dp", "fsdp"),)
+SEQ_SPEC = (("dp", "fsdp"), "sp")  # __graft_entry__.py:159
 SHARD_CASES = {
-    "gpt2_tp2": (train_config, dict(tp=2), TRAIN_B),
-    "llama_fsdp2_tp2": (llama_train_config, dict(fsdp=2, tp=2), TRAIN_B),
-    "moe_tp2": (moe_train_config, dict(tp=2), TRAIN_B),
-    "dp2": (train_config, dict(dp=2), 2 * TRAIN_B),
-    "ep2": (moe_train_config, dict(ep=2), TRAIN_B),
+    "gpt2_tp2": (train_config, dict(tp=2), TRAIN_B, ROW_SPEC),
+    "llama_fsdp2_tp2": (llama_train_config, dict(fsdp=2, tp=2), TRAIN_B, ROW_SPEC),
+    "moe_tp2": (moe_train_config, dict(tp=2), TRAIN_B, ROW_SPEC),
+    "dp2": (train_config, dict(dp=2), 2 * TRAIN_B, ROW_SPEC),
+    "ep2": (moe_train_config, dict(ep=2), TRAIN_B, ROW_SPEC),
+    "gpt2_sp2_tp2": (train_config, dict(sp=2, tp=2), TRAIN_B, SEQ_SPEC),
+    "llama_fsdp2_sp2": (llama_train_config, dict(fsdp=2, sp=2), TRAIN_B, SEQ_SPEC),
+    "moe_pp2_ep2": (moe_pp_train_config, dict(pp=2, ep=2), TRAIN_B, ROW_SPEC),
 }
+SEQ_PIPE_CASES = ("gpt2_sp2_tp2", "llama_fsdp2_sp2", "moe_pp2_ep2")
 
 
-def mesh_setup(cfg, mesh, opt, dev, generator, batch):
+def shard_launches(cfg, spec: dict, rows: int) -> dict:
+    """Flash launches of one rank's full step of a sharded case. Where the
+    sequence is split over sp outside a pipeline, attention runs over the
+    ring and no kernel; otherwise a rank runs its stage's n_layer/pp
+    layers once for each of its microbatches (GPipe skips the bubble
+    steps), the forward again in backward where the policy is "dots"
+    (MoE)."""
+    mesh = MeshSpec(**spec)
+    if mesh.sp > 1 and cfg.max_seq % mesh.sp == 0 and mesh.pp == 1:
+        return {"flash_fwd": 0, "flash_bwd": 0}
+    micro = 1
+    if mesh.pp > 1:
+        micro = common.pipeline_microbatches(
+            rows // (mesh.dp * mesh.fsdp), max(cfg.pipeline_microbatches, 1), Mesh(mesh))[0]
+    runs = cfg.n_layer // mesh.pp * micro
+    return {"flash_fwd": runs * (2 if getattr(cfg, "n_experts", 0) else 1), "flash_bwd": runs}
+
+
+def mesh_setup(cfg, mesh, opt, dev, generator, batch, batch_spec=ROW_SPEC):
     """bench.py's sequence: shardings from the logical rules, the state
-    sharded at creation, the step over the mesh with the batch split over
-    (dp, fsdp), and compile_train_step. Returns (step, state, shardings)."""
+    sharded at creation, the step over the mesh with the batch under
+    ``batch_spec`` (split over (dp, fsdp), and for SEQ_SPEC the sequence
+    over sp), and compile_train_step. Returns (step, state, shardings)."""
     model = model_of(cfg)
     shardings = shardings_from_logical(model.param_logical_specs(cfg), DEFAULT_RULES, mesh)
     state = spmd.make_train_state(
@@ -1173,19 +1224,31 @@ def mesh_setup(cfg, mesh, opt, dev, generator, batch):
     )
     step = spmd.make_train_step(
         functools.partial(model.loss_fn, cfg=cfg, mesh=mesh), opt, mesh=mesh,
-        batch_spec=P(("dp", "fsdp")), param_shardings=shardings,
+        batch_spec=P(*batch_spec), param_shardings=shardings,
     )
     step, flops = spmd.compile_train_step(step, state, batch)
     assert flops is None  # eager PyTorch has no cost model
     return step, state, shardings
 
 
-def loss_and_norm(cfg, params, batch, shardings=None, mesh=None) -> dict:
+def loss_and_norm(cfg, params, batch, shardings=None, mesh=None, batch_spec=ROW_SPEC) -> dict:
     """The gradient half of the step (make_grad_fn, global_norm) once:
-    the global cross-entropy, the gradients' global norm and the MoE aux."""
+    the global cross-entropy, the gradients' global norm and the MoE aux.
+    Unsharded, a pipelined MoE config is the mean over its microbatches of
+    the step on each (the pipeline routes each microbatch's tokens
+    together): its loss and aux, and the norm of the mean gradient."""
     loss_fn = functools.partial(model_of(cfg).loss_fn, cfg=cfg, mesh=mesh)
-    spec = P(("dp", "fsdp")) if mesh is not None else None
-    metrics, grads = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=spec)(params, batch, shardings)
+    spec = P(*batch_spec) if mesh is not None else None
+    grad_fn = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=spec)
+    n_micro = getattr(cfg, "pipeline_microbatches", 0)
+    if mesh is None and n_micro > 1 and getattr(cfg, "n_experts", 0):
+        parts = [grad_fn(params, {k: v.chunk(n_micro)[i] for k, v in batch.items()}, None)
+                 for i in range(n_micro)]
+        metrics = {k: sum(m[k] for m, _ in parts) / n_micro for k in ("loss", "moe_aux")}
+        grads = [sum(gs) / n_micro for gs in zip(*(g for _, g in parts))]
+        del parts
+    else:
+        metrics, grads = grad_fn(params, batch, shardings)
     out = dict(loss=metrics["loss"].item(),
                gnorm=spmd.global_norm(grads, shardings, mesh).item())
     if "moe_aux" in metrics:
@@ -1303,14 +1366,15 @@ def shard_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
     the unsharded step in this process from the same seed: loss and
     gradient norm within the training tolerances, and each rank's
     launches of one full step."""
-    config, spec, rows = SHARD_CASES[name]
+    config, spec, rows, batch_spec = SHARD_CASES[name]
     cfg = cfg or config()
     world = MeshSpec(**spec).num_devices
     cuda = device_type == "cuda"
     backend = "nccl" if cuda and torch.cuda.device_count() >= world else "gloo"
     case = Path(tmp) / f"{name}.pkl"
     with open(case, "wb") as f:
-        pickle.dump(dict(cfg=cfg, spec=spec, rows=rows, device_type=device_type, backend=backend), f)
+        pickle.dump(dict(cfg=cfg, spec=spec, rows=rows, batch_spec=batch_spec,
+                         device_type=device_type, backend=backend), f)
     store = Path(tmp) / f"{name}.store"
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank", str(r), str(world),
@@ -1331,8 +1395,7 @@ def shard_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
     ranks_s = time.perf_counter() - t0
     dev = torch.device(device_type, 0) if cuda else torch.device("cpu")
     want = unsharded_step(cfg, rows, dev)
-    per_step = {"flash_fwd": cfg.n_layer * (2 if getattr(cfg, "n_experts", 0) else 1),
-                "flash_bwd": cfg.n_layer}
+    per_step = shard_launches(cfg, spec, rows)
     for got in outs:
         assert abs(got["loss"] - want["loss"]) <= TRAIN_LOSS_TOL, (name, got, want)
         assert abs(got["gnorm"] - want["gnorm"]) / want["gnorm"] <= TRAIN_GNORM_TOL, (name, got, want)
@@ -1342,6 +1405,8 @@ def shard_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
         torch.cuda.empty_cache()
     return dict(model=type(cfg).__name__, n_experts=getattr(cfg, "n_experts", 0), mesh=spec,
                 world=world, backend=backend, batch=[rows, cfg.max_seq],
+                batch_spec=[list(e) if isinstance(e, tuple) else e for e in batch_spec],
+                pipeline_microbatches=getattr(cfg, "pipeline_microbatches", 0),
                 launches_per_step=per_step, ranks=outs, unsharded=want, ranks_s=ranks_s)
 
 
@@ -1364,16 +1429,19 @@ def mesh_rank(rank: int, world: int, store: str, case_path: str) -> None:
         # Every rank draws the whole tree on the CPU from one seed.
         batch = mesh_batch(cfg, case["rows"], dev)
         step, state, shardings = mesh_setup(
-            cfg, mesh, opt, dev, torch.Generator().manual_seed(0), batch
+            cfg, mesh, opt, dev, torch.Generator().manual_seed(0), batch, case["batch_spec"]
         )
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
-        out = loss_and_norm(cfg, state["params"], batch, shardings, mesh)
+        out = loss_and_norm(cfg, state["params"], batch, shardings, mesh, case["batch_spec"])
         out.update(shard_step(step, state, batch, dev))
         out["coords"] = {a: mesh.coordinate(a) for a in mesh.axis_names if mesh.size(a) > 1}
         # gloo takes CUDA tensors for every collective the port runs and
         # stages them through host memory; NCCL keeps them on the cards.
-        out["transport"] = dict(backend=dist.get_backend(), tensors=str(dev))
+        # Point to point (the sp ring, the pp stages) gloo takes on the
+        # host only: the port copies through pinned host memory itself.
+        out["transport"] = dict(backend=dist.get_backend(), tensors=str(dev), p2p={
+            a: p2p_transport(mesh, a, dev) for a in ("sp", "pp") if mesh.size(a) > 1})
         print(json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
@@ -1381,14 +1449,21 @@ def mesh_rank(rank: int, world: int, store: str, case_path: str) -> None:
 
 def train_shard(dev, tmp: str) -> dict:
     """Every case of SHARD_CASES in turn (see shard_case); the launches of
-    all ranks' one full step, summed per kernel."""
+    all ranks' one full step, summed per kernel: over the earlier cases
+    (``launches``) and over the sp and pp cases (``launches_sp_pp``)."""
     cases = {}
     for name in SHARD_CASES:
+        t0 = time.perf_counter()
         cases[name] = shard_case(name, dev.type, tmp)
+        cases[name]["case_s"] = time.perf_counter() - t0
         log(f"train_shard {name}: {json.dumps(cases[name])}")
-    launches = {k: sum(r["launches"][k] for c in cases.values() for r in c["ranks"])
+
+    def summed(names):
+        return {k: sum(r["launches"][k] for n in names for r in cases[n]["ranks"])
                 for k in KERNELS}
-    return dict(cases=cases, launches=launches)
+
+    return dict(cases=cases, launches=summed([n for n in cases if n not in SEQ_PIPE_CASES]),
+                launches_sp_pp=summed(SEQ_PIPE_CASES))
 
 
 # Speculative decoding: the arms of each cache, in order. The vanilla arm
@@ -1876,6 +1951,7 @@ def main() -> int:
                         "train_moe": train_moe["launches"]["flash_fwd"],
                         "train_mesh": mesh_run["launches"]["flash_fwd"],
                         "train_shard": shard_run["launches"]["flash_fwd"],
+                        "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_fwd"],
                         **{k: f for k, (f, _) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
@@ -1886,6 +1962,7 @@ def main() -> int:
                         "train_moe": train_moe["launches"]["flash_bwd"],
                         "train_mesh": mesh_run["launches"]["flash_bwd"],
                         "train_shard": shard_run["launches"]["flash_bwd"],
+                        "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_bwd"],
                         **{k: b for k, (_, b) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)

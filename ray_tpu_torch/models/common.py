@@ -1,10 +1,11 @@
 """What both model families' training paths share. Port of
-``ray_tpu/models/common.py`` (``chunked_lm_loss``; the GPipe
-``pipelined_blocks`` is not ported yet), plus the pieces of the
-reference's ``gpt2.py``/``llama.py`` that both families run alike: the
-remat ladder (:func:`remat_policy`, :func:`remat_block`), the per-layer
-views of the stacked leaves (:func:`unbind_layers`) and the next-token
-loss over a batch (:func:`split_batch`, :func:`lm_loss`).
+``ray_tpu/models/common.py`` (``chunked_lm_loss`` and the GPipe
+``pipelined_blocks``), plus the pieces of the reference's
+``gpt2.py``/``llama.py`` that both families run alike: the remat ladder
+(:func:`remat_policy`, :func:`remat_block`), the per-layer views of the
+stacked leaves (:func:`unbind_layers`), the next-token loss over a batch
+(:func:`split_batch`, :func:`lm_loss`) and the sequence split over ``sp``
+(:func:`seq_shard`, :func:`sequence_attention`).
 
 ``chunked_lm_loss(x, head, targets, chunk)``: ``head`` is the output
 projection oriented ``[V, D]`` (contract over D); a tied-embedding model
@@ -21,11 +22,29 @@ the vocabulary: :func:`vocab_parallel_embed` and the loss
 (:class:`_VocabParallelCE`) never build a whole ``[B, S, V]``; serving
 gathers each rank's logits of its vocabulary shard whole
 (:func:`gather_vocab`), since it samples on the host.
+
+The ``sp`` axis splits the sequence: each rank takes a contiguous block of
+``S/sp`` positions of its rows (:func:`seq_shard`; the whole sequence on
+every rank where ``sp`` does not divide it), and attention runs over the
+ring (:func:`~ray_tpu_torch.ops.ring_attention.ring_attention`), or, inside
+the pipeline, over the sequence gathered whole (the reference turns the
+ring off there).
+
+The ``pp`` axis splits the stacked layers into stages
+(:func:`pipelined_blocks`): GPipe over microbatches, each microbatch's
+activations sent stage to stage by the ring exchange
+(:func:`~ray_tpu_torch.parallel.sharding.exchange`), forward in step order
+and backward in reverse. Bubble steps are skipped, not computed on clamped
+duplicates as in the reference: the result is the same, and a stage runs
+its layers once for each microbatch, forward and backward. The last
+stage's output is broadcast over ``pp`` (the head and the loss are
+replicated there).
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 from typing import Callable
 
@@ -38,13 +57,15 @@ from torch.utils.checkpoint import (
 )
 
 from ray_tpu_torch.ops.attention import uses_flash_kernel
-from ray_tpu_torch.parallel.mesh import Mesh, check_ported_axes, local_mesh
+from ray_tpu_torch.ops.ring_attention import ring_attention
+from ray_tpu_torch.parallel.mesh import Mesh, check_mesh, local_mesh
 from ray_tpu_torch.parallel.sharding import (
     DEFAULT_RULES,
     all_gather,
     all_gather_dim,
     all_reduce,
     all_reduce_,
+    exchange,
     grad_all_reduce,
     logical_to_mesh_spec,
 )
@@ -173,20 +194,21 @@ def _dots_context():
     return create_selective_checkpoint_contexts(_dots_policy)
 
 
-def remat_policy(cfg, x: torch.Tensor) -> str:
+def remat_policy(cfg, x: torch.Tensor, ring: bool = False) -> str:
     """The policy a model's ``hidden`` applies to activations like ``x``:
     ``cfg.remat`` with bools resolved, and "mlp" turned into "dots" under
     mixture-of-experts (``ray_tpu/models/gpt2.py:334-335``) and where
-    attention does not run the flash kernel (the plain path has no saved
-    residuals to keep, and would hold the S x S probabilities of every
-    layer), as at ``ray_tpu/models/gpt2.py:339-352`` and
-    ``ray_tpu/models/llama.py:229-237``. An unknown policy raises."""
+    attention does not run the flash kernel: on the ring (``ring``) or on
+    the plain path, neither of which has saved residuals to keep, and
+    either would hold every layer's probabilities, as at
+    ``ray_tpu/models/gpt2.py:336-352`` and ``ray_tpu/models/llama.py:229-237``.
+    An unknown policy raises."""
     remat = {True: "full", False: "none"}.get(cfg.remat, cfg.remat)
     if remat not in ("full", "dots", "mlp", "none"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     if remat == "mlp" and getattr(cfg, "n_experts", 0) > 0:
         remat = "dots"  # the "mlp" policy checkpoints the DENSE sublayer
-    if remat == "mlp" and not uses_flash_kernel(x, impl=cfg.attn_impl):
+    if remat == "mlp" and (ring or not uses_flash_kernel(x, impl=cfg.attn_impl)):
         remat = "dots"
     return remat
 
@@ -236,7 +258,12 @@ def split_batch(batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def lm_loss(
-    x: torch.Tensor, head: torch.Tensor, targets: torch.Tensor, chunk: int, mesh: Mesh | None = None
+    x: torch.Tensor,
+    head: torch.Tensor,
+    targets: torch.Tensor,
+    chunk: int,
+    mesh: Mesh | None = None,
+    seq_split: bool = False,
 ):
     """Mean next-token cross-entropy of hidden states ``x [B, S, D]`` under
     the output projection ``head [V, D]``: ``(loss, {"loss", "tokens"})``,
@@ -247,14 +274,17 @@ def lm_loss(
     ``head`` is this rank's rows of the vocabulary and the loss is
     vocab-parallel; ``x`` (replicated over ``tp``) enters through
     :func:`grad_all_reduce`, since each rank's logits give it a part of its
-    gradient."""
+    gradient. With ``seq_split``, ``x`` and ``targets`` are this rank's
+    block of the sequence under ``sp``; the loss is the block's mean, and
+    the token count the count of the ``sp`` ranks' blocks together."""
     mesh = mesh or local_mesh()
     x = grad_all_reduce(x, mesh, "tp")
     if chunk and x.shape[1] > chunk:
         ce = chunked_lm_loss(x, head, targets, chunk, mesh) / targets.numel()
     else:
         ce = _vocab_parallel_ce((x @ head.T).float(), targets, head, mesh).mean()
-    tokens_n = torch.full((), targets.numel(), dtype=torch.int32, device=ce.device)
+    count = targets.numel() * (mesh.size("sp") if seq_split else 1)
+    tokens_n = torch.full((), count, dtype=torch.int32, device=ce.device)
     return ce, {"loss": ce.detach(), "tokens": tokens_n}
 
 
@@ -269,16 +299,28 @@ def model_mesh(params: dict, cfg, mesh: Mesh | None, logical: dict) -> tuple[Mes
     ``ValueError`` when the leaves are not this mesh's local shards under
     ``DEFAULT_RULES`` (``wte`` is split over ``tp`` by vocabulary and over
     ``fsdp`` by ``embed``): shards given with no mesh are never computed on
-    as if they were whole."""
+    as if they were whole. Under ``pp`` the stages split ``cfg.n_layer``
+    (else ``ValueError``, as in the reference) and each holds its own
+    layers."""
     if mesh is None:
         mesh, where = local_mesh(), "no mesh was given: pass the mesh the leaves are sharded over"
     else:
-        check_ported_axes(mesh)
+        check_mesh(mesh)
         where = f"the local shard that mesh {mesh.spec.asdict()} gives under DEFAULT_RULES"
+    pp = mesh.size("pp")
+    if cfg.n_layer % pp:
+        raise ValueError(
+            f"n_layer {cfg.n_layer} not divisible by the {pp} pipeline stages (pp mesh axis)"
+        )
     want = (cfg.vocab_size // mesh.size("tp"), cfg.d_model // mesh.size("fsdp"))
     got = tuple(params["wte"].shape)
     if got != want:
         raise ValueError(f"wte has shape {got}, not {want}, {where} (mesh=)")
+    layers = next(iter(params["blocks"].values())).shape[0]
+    if layers != cfg.n_layer // pp:
+        raise ValueError(
+            f"blocks hold {layers} layers, not {cfg.n_layer // pp}, {where} (mesh=)"
+        )
     return mesh, fsdp_dims(logical, mesh)
 
 
@@ -375,3 +417,222 @@ def gather_vocab(logits: torch.Tensor, mesh: Mesh) -> torch.Tensor:
         return logits
     parts = all_gather(logits.contiguous(), mesh, "tp")  # [tp, ..., V/tp]
     return torch.cat(parts.unbind(0), dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The sequence over sp
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqShard:
+    """This rank's block ``[start, start + length)`` of a sequence under
+    ``sp``; ``split`` is whether the ``sp`` ranks hold different blocks
+    (else every one holds the whole sequence)."""
+
+    start: int
+    length: int
+    split: bool
+
+    def take(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim`` (a view)."""
+        return t.narrow(dim, self.start, self.length) if self.split else t
+
+
+def seq_shard(mesh: Mesh, S: int) -> SeqShard:
+    """The block of a sequence of ``S`` positions this rank takes under
+    ``mesh``'s ``sp``: rank ``r`` the contiguous ``[r*S/sp, (r+1)*S/sp)``,
+    or, where ``sp`` does not divide ``S`` (the reference then attends
+    over the whole sequence), all of it on every rank."""
+    sp = mesh.size("sp")
+    if sp == 1 or S % sp:
+        return SeqShard(0, S, False)
+    n = S // sp
+    return SeqShard(mesh.coordinate("sp") * n, n, True)
+
+
+def sequence_attention(q, k, v, mesh: Mesh, seq: SeqShard, pipelined: bool, attn: Callable,
+                       expand: Callable = lambda t: t):
+    """Causal attention of this rank's queries ``q [B, H, T, Dh]`` (the
+    positions of ``seq``) with ``attn(q, k, v)`` the whole-sequence
+    attention and ``expand`` the step that makes ``k``/``v`` one head per
+    query head (GQA). Where the sequence is whole on this rank: ``attn``.
+    Where it is split over ``sp``: ring attention, or, inside the
+    pipeline, ``attn`` over q, k and v gathered whole over ``sp`` and this
+    rank's rows of the result (the gathers' backward sums each block's
+    gradient over the ranks)."""
+    if not seq.split:
+        return attn(q, expand(k), expand(v))
+    if not pipelined:
+        return ring_attention(q, expand(k), expand(v), mesh)
+    q, k, v = (all_gather_dim(t, mesh, "sp", 2).contiguous() for t in (q, k, v))
+    return attn(q, expand(k), expand(v)).narrow(2, seq.start, seq.length)
+
+
+# ---------------------------------------------------------------------------
+# GPipe over pp
+
+
+def pipeline_microbatches(rows: int, n_micro: int, mesh: Mesh) -> tuple[int, int]:
+    """``(local, group)`` for ``n_micro`` microbatches of a global batch
+    whose ``rows`` are this rank's under ``mesh``'s batch shards (dp x
+    fsdp, ``k`` of them). The reference cuts the *global* batch into
+    ``n_micro`` contiguous microbatches, so each shard holds
+    ``local = n_micro / k`` whole ones where ``k`` divides ``n_micro``, or a
+    part of one (``local = 1``) that ``group = k / n_micro`` shards share
+    where ``n_micro`` divides ``k``; a microbatch is what a mixture-of-
+    experts layer routes together. Raises ``ValueError`` when ``n_micro``
+    does not divide the batch (as the reference does), or neither of
+    ``n_micro`` and ``k`` divides the other."""
+    k = mesh.size("dp") * mesh.size("fsdp")
+    B = rows * k
+    if n_micro < 1 or B % n_micro:
+        raise ValueError(f"batch {B} not divisible by pipeline_microbatches {n_micro}")
+    if n_micro % k == 0:
+        return n_micro // k, 1
+    if k % n_micro == 0:
+        return 1, k // n_micro
+    raise ValueError(
+        f"pipeline_microbatches {n_micro} and the {k} batch shards (dp x fsdp): "
+        "one must divide the other"
+    )
+
+
+class _GPipe:
+    """The schedule of one pipeline stage: ``stage(x, leaves) -> (x,
+    aux)`` runs this stage's layers on a microbatch. At step ``t`` stage
+    ``s`` holds microbatch ``t - s``; a stage with none at a step (a
+    bubble) computes nothing. After each step a stage sends its output on
+    to the next (:func:`~ray_tpu_torch.parallel.sharding.exchange` by +1,
+    only the pairs that carry a microbatch posting); backward runs the
+    steps in reverse, and the gradient of each microbatch's input goes back
+    by -1."""
+
+    def __init__(self, stage: Callable, mesh: Mesh, n_local: int):
+        self.stage, self.mesh, self.n_local = stage, mesh, n_local
+        self.pp, self.idx = mesh.size("pp"), mesh.coordinate("pp")
+        self.steps = n_local + self.pp - 1
+
+    def holds(self, t: int) -> bool:
+        """Whether this stage holds a microbatch at step ``t``."""
+        return 0 <= t - self.idx < self.n_local
+
+    def forward(self, x: torch.Tensor, leaves: list, keep: bool):
+        """``(out, aux, saved)``: the last stage's output (zeros on every
+        other stage), this stage's aux summed over its microbatches, and
+        with ``keep`` each microbatch's (input, output, aux) with their
+        graphs, for :meth:`backward`."""
+        pp, idx = self.pp, self.idx
+        xs = x.chunk(self.n_local)
+        outs, saved, recv = [], {}, None
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for t in range(self.steps):
+            sent = None
+            if self.holds(t):
+                m = t - idx
+                inp = xs[m] if idx == 0 else recv
+                if keep:
+                    inp = inp.detach().requires_grad_()
+                    with torch.enable_grad():
+                        out, a = self.stage(inp, leaves)
+                    saved[m] = (inp, out, a)
+                else:
+                    out, a = self.stage(inp, leaves)
+                aux = aux + a.detach()
+                if idx == pp - 1:
+                    outs.append(out.detach())
+                else:
+                    sent = out.detach()
+            if t < self.steps - 1:
+                takes = idx > 0 and self.holds(t + 1)
+                recv = exchange(sent, xs[0] if takes else None, self.mesh, "pp", 1)
+        out = torch.cat(outs) if idx == pp - 1 else torch.zeros_like(x)
+        return out, aux, saved
+
+    def backward(self, saved: dict, leaves: list, g_out, g_aux):
+        """``(g_x, g_leaves)`` from the cotangents of :meth:`forward`'s out
+        and aux: each microbatch's graph differentiated in reverse step
+        order, its input's gradient sent to the previous stage. Only stage
+        0 reads ``x``; the others give it a zero gradient."""
+        pp, idx = self.pp, self.idx
+        g_outs = g_out.chunk(self.n_local) if idx == pp - 1 else None
+        wants = [i for i, leaf in enumerate(leaves) if leaf.requires_grad]
+        g_leaves = [None] * len(leaves)
+        like = next(iter(saved.values()))[0]  # every microbatch has one shape
+        g_xs, recv = [None] * self.n_local, None
+        for t in reversed(range(self.steps)):
+            sent = None
+            if self.holds(t):
+                m = t - idx
+                inp, out, a = saved.pop(m)
+                outputs, cotangents = [out], [g_outs[m] if g_outs is not None else recv]
+                if a.requires_grad:
+                    outputs.append(a)
+                    cotangents.append(g_aux)
+                got = torch.autograd.grad(
+                    outputs, [inp] + [leaves[i] for i in wants], cotangents, allow_unused=True
+                )
+                for i, g in zip(wants, got[1:]):
+                    if g is not None:
+                        g_leaves[i] = g if g_leaves[i] is None else g_leaves[i] + g
+                if idx == 0:
+                    g_xs[m] = got[0]
+                else:
+                    sent = got[0]
+            if t > 0:
+                takes = idx < pp - 1 and self.holds(t - 1)
+                recv = exchange(sent, like if takes else None, self.mesh, "pp", -1)
+        if idx == 0:
+            return torch.cat(g_xs), g_leaves
+        return like.new_zeros((self.n_local * like.shape[0], *like.shape[1:])), g_leaves
+
+
+class _Pipeline(torch.autograd.Function):
+    """A stage's :class:`_GPipe` schedule as one autograd node: forward
+    keeps each microbatch's graph, backward runs the reverse schedule."""
+
+    @staticmethod
+    def forward(ctx, sched: _GPipe, x, *leaves):
+        params = [leaf.detach().requires_grad_(leaf.requires_grad) for leaf in leaves]
+        out, aux, saved = sched.forward(x, params, keep=True)
+        ctx.sched, ctx.params, ctx.saved = sched, params, saved
+        return out, aux
+
+    @staticmethod
+    def backward(ctx, g_out, g_aux):
+        g_x, g_leaves = ctx.sched.backward(ctx.saved, ctx.params, g_out, g_aux)
+        ctx.saved = ctx.params = None
+        return (None, g_x, *g_leaves)
+
+
+def pipelined_blocks(
+    blocks: dict, x: torch.Tensor, block_fn: Callable, mesh: Mesh, *, n_micro: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """GPipe over ``mesh``'s ``pp`` axis (``ray_tpu/models/common.py:64``):
+    ``blocks`` is this stage's ``L/pp`` stacked layers (its local shard
+    under ``"layers": "pp"``), ``x`` the embedded batch (replicated over
+    ``pp``; stage 0 reads it) and ``block_fn(x, layer) -> (x, aux)`` one
+    layer. Returns ``(x, aux)``: the last stage's output, broadcast over
+    ``pp`` (an all-reduce whose backward sums the cotangents, as the
+    reference's ``psum``), and the aux of the genuine microbatch steps
+    summed over the stages (and the batch shards' microbatches) over
+    ``n_micro``, the unpipelined layer sum's value (``psum(aux)/n_micro``).
+    Every rank of the mesh must call it together."""
+    n_local, group = pipeline_microbatches(x.shape[0], n_micro, mesh)
+    names = sorted(blocks)
+
+    def stage(inp, leaves):
+        aux = torch.zeros((), dtype=torch.float32, device=inp.device)
+        for p in unbind_layers({"blocks": dict(zip(names, leaves))}):
+            inp, a = block_fn(inp, p)
+            aux = aux + a
+        return inp, aux
+
+    sched = _GPipe(stage, mesh, n_local)
+    leaves = [blocks[k] for k in names]
+    if torch.is_grad_enabled():
+        out, aux = _Pipeline.apply(sched, x, *leaves)
+    else:
+        out, aux, _ = sched.forward(x, leaves, keep=False)
+    out = all_reduce(out, mesh, "pp", grad="sum")
+    aux = all_reduce(aux, mesh, ("pp", *mesh.spec.batch_axes), grad="sum") / (n_micro * group)
+    return out, aux

@@ -115,38 +115,44 @@ def _from_numpy(tree: dict, spec: dict, device) -> dict:
 def tp_shard(params: dict, cfg, mesh: Mesh) -> dict:
     """This rank's part of every leaf of the whole tree ``params`` for
     serving under ``mesh``'s ``tp`` axis (``params`` itself where ``tp``
-    has size 1). The blocks are ``DEFAULT_RULES``' (the vocabulary, the
-    MLP's columns and rows, the attention output's rows, Llama's ``wq``
-    by heads and ``lm_head`` by vocabulary), with one difference for each
-    family: GPT-2's fused ``qkv_w``/``qkv_b`` keep this rank's heads' q, k
-    and v columns (:func:`~ray_tpu_torch.models.gpt2.heads_columns`; the
-    rule's contiguous column block is not a block of heads), and Llama's
-    ``wk``/``wv``, whole under the rule, keep the columns of the KV heads
-    this rank's query heads read (:func:`~ray_tpu_torch.models.llama._kv_heads`).
-    So the serving path takes its heads once, at load, and gathers nothing
-    per layer. Split leaves are compact copies on the leaves' device."""
+    has size 1). The blocks are ``DEFAULT_RULES``' (the vocabulary and the
+    MLP's columns and rows), but the attention weights are split by heads:
+    each rank takes a contiguous block of them
+    (:func:`~ray_tpu_torch.models.gpt2.head_block`, uneven where ``tp``
+    does not divide ``n_head``). GPT-2's fused ``qkv_w``/``qkv_b`` keep
+    this rank's heads' q, k and v columns
+    (:func:`~ray_tpu_torch.models.gpt2.heads_columns`) and ``proj_w`` their
+    rows; Llama's ``wq`` their columns, ``wo`` their rows, and ``wk``/``wv``
+    (whole under the rule) the columns of the KV heads those query heads
+    read (:func:`~ray_tpu_torch.models.llama.kv_heads`). So the serving
+    path takes its heads once, at load, and gathers nothing per layer; the
+    two all-reduces a layer sum the ranks' parts as they do for even
+    blocks. Split leaves are compact copies on the leaves' device."""
     tp = mesh.size("tp")
     if tp == 1:
         return params
     family = llama if isinstance(cfg, LlamaConfig) else gpt2
     shardings = shardings_from_logical(family.param_logical_specs(cfg), DEFAULT_RULES, mesh)
-    heads = ("wk", "wv") if family is llama else ("qkv_w", "qkv_b")
-    whole = NamedSharding(mesh, P())
-    shardings["blocks"].update(dict.fromkeys(heads, whole))
-    out = shard_tree(params, shardings)
+    r, Dh = mesh.coordinate("tp"), cfg.head_dim
+    lo, hi = gpt2.head_block(cfg.n_head, tp, r)
+
+    def columns(t):
+        return t[..., lo * Dh:hi * Dh]
+
+    def rows(t):
+        return t[..., lo * Dh:hi * Dh, :]
+
     if family is llama:
-        lo, hi = llama._kv_heads(cfg, mesh)
-        Dh = cfg.head_dim
-
-        def own(t):
-            return t[..., lo * Dh : hi * Dh]
-
+        kv = llama.kv_heads(cfg, tp, r)
+        own = {"wq": columns, "wo": rows, "wk": lambda t: llama.kv_columns(t, kv, Dh)}
+        own["wv"] = own["wk"]
     else:
-
-        def own(t):
-            return gpt2.heads_columns(t, cfg, tp, mesh.coordinate("tp"))
-
-    out["blocks"] = dict(out["blocks"], **{k: own(params["blocks"][k]).clone() for k in heads})
+        own = {"qkv_w": lambda t: gpt2.heads_columns(t, cfg, tp, r), "proj_w": rows}
+        own["qkv_b"] = own["qkv_w"]
+    shardings["blocks"].update(dict.fromkeys(own, NamedSharding(mesh, P())))
+    out = shard_tree(params, shardings)
+    blocks = {k: take(params["blocks"][k]).clone() for k, take in own.items()}
+    out["blocks"] = dict(out["blocks"], **blocks)
     return out
 
 

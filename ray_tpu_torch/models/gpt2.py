@@ -27,8 +27,16 @@ embedding and the tied logits are vocab-parallel, ``qkv_w``/``fc_w``
 (``exp_w2``) by rows, whose partial products one all-reduce sums (Megatron).
 The rule's ``qkv_w`` blocks are not aligned with the heads (rank 0's
 columns hold all of q and part of k), so each layer gathers ``qkv_w``'s
-columns over ``tp`` and takes its own heads' q, k and v. ``sp``, ``pp`` and
-``pipeline_microbatches`` raise (not ported yet).
+columns over ``tp`` and takes its own heads' q, k and v. Over ``sp`` each
+rank takes a contiguous block of the sequence (``wpe`` at the block's
+global positions) and attention runs over the ring
+(:func:`~ray_tpu_torch.ops.ring_attention.ring_attention`), as
+``ray_tpu/models/gpt2.py:207-235``; over ``pp`` the stacked layers run as
+the GPipe schedule of ``cfg.pipeline_microbatches`` microbatches
+(:func:`~ray_tpu_torch.models.common.pipelined_blocks`), inside which
+attention takes the whole sequence (gathered over ``sp``) and the flash
+kernels, and a mixture-of-experts layer routes each global microbatch's
+tokens together (:class:`Routing`).
 """
 
 from __future__ import annotations
@@ -41,12 +49,17 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.common import (
+    SeqShard,
     gathered,
     lm_loss,
     model_mesh,
+    pipeline_microbatches,
+    pipelined_blocks,
     remat_block,
     remat_policy,
     reshard_after_forward,
+    seq_shard,
+    sequence_attention,
     sharded_layers,
     split_batch,
     unbind_layers,
@@ -123,11 +136,6 @@ class GPT2Config:
         )
 
 
-def _check_supported(cfg: GPT2Config) -> None:
-    if cfg.pipeline_microbatches > 0:
-        raise NotImplementedError("pipeline-parallel GPT-2 is not ported yet")
-
-
 # Leaves the reference casts to the activation dtype at each use; the
 # layer-norm scales and biases stay in f32.
 MATMUL_LEAVES = (
@@ -181,7 +189,6 @@ def init_params(
     generator's device, then moves to ``device``: the card unless the caller
     asks for ``"cpu"`` (a CUDA request with no GPU raises). The numbers
     differ from the reference's ``jax.random`` for the same seed."""
-    _check_supported(cfg)
     device = resolve_device(device)
     std = 0.02
     pd = cfg.param_dtype
@@ -266,12 +273,17 @@ def _layer_norm(x, scale, bias, eps=1e-5):
     return (y * scale + bias).to(x.dtype)
 
 
-def _attn_sublayer(x, p, cfg: GPT2Config, mesh: Mesh = local_mesh()):
+def _attn_sublayer(x, p, cfg: GPT2Config, mesh: Mesh = local_mesh(),
+                   seq: SeqShard | None = None, pipelined: bool = False):
     """``x`` plus attention over this rank's heads (all of them off a mesh).
     ``p`` holds the layer's weights as :func:`_attn_weights` gives them:
     ``qkv_w``/``qkv_b`` this rank's heads' q, k and v columns, ``proj_w``
     their rows. Under ``tp`` the input enters through
-    :func:`grad_all_reduce` and the partial products are summed."""
+    :func:`grad_all_reduce` and the partial products are summed. ``x`` is
+    the positions ``seq`` of its rows (all of them by default); where they
+    are a block of the sequence split over ``sp``, attention runs over the
+    ring, or inside the pipeline over the gathered sequence
+    (:func:`~ray_tpu_torch.models.common.sequence_attention`)."""
     B, S, D = x.shape
     Dh = cfg.head_dim
     h = grad_all_reduce(_layer_norm(x, p["ln1_scale"], p["ln1_bias"]), mesh, "tp")
@@ -281,14 +293,13 @@ def _attn_sublayer(x, p, cfg: GPT2Config, mesh: Mesh = local_mesh()):
     def heads(t):  # [B,S,H*Dh] -> [B,H,S,Dh]
         return t.reshape(B, S, -1, Dh).transpose(1, 2)
 
-    attn = causal_attention(
-        heads(q),
-        heads(k_),
-        heads(v),
-        impl=cfg.attn_impl,
-        block_q=cfg.attn_block_q,
-        block_k=cfg.attn_block_k,
-    )
+    def whole(q, k, v):
+        return causal_attention(
+            q, k, v, impl=cfg.attn_impl, block_q=cfg.attn_block_q, block_k=cfg.attn_block_k
+        )
+
+    seq = seq or SeqShard(0, S, False)
+    attn = sequence_attention(heads(q), heads(k_), heads(v), mesh, seq, pipelined, whole)
     attn = attn.transpose(1, 2).reshape(B, S, -1)
     out = all_reduce(attn @ p["proj_w"].to(cfg.dtype), mesh, "tp", grad="identity")
     return x + out + p["proj_b"].to(cfg.dtype)
@@ -311,16 +322,24 @@ def _own_heads(t: torch.Tensor, cfg: GPT2Config, mesh: Mesh) -> torch.Tensor:
     tp = mesh.size("tp")
     if tp == 1:
         return t
+    if cfg.n_head % tp:  # the rule's even blocks of proj_w's rows must be whole heads
+        raise ValueError(f"n_head={cfg.n_head} does not split over tp={tp}")
     return heads_columns(all_gather_dim(t, mesh, "tp", -1), cfg, tp, mesh.coordinate("tp"))
 
 
+def head_block(n_head: int, tp: int, rank: int) -> tuple[int, int]:
+    """The heads ``[lo, hi)`` of rank ``rank`` of ``tp``: contiguous blocks
+    as even as they go (``lo = rank * n_head // tp``), ``n_head / tp``
+    each where ``tp`` divides ``n_head``."""
+    return rank * n_head // tp, (rank + 1) * n_head // tp
+
+
 def heads_columns(whole: torch.Tensor, cfg: GPT2Config, tp: int, rank: int) -> torch.Tensor:
-    """Columns ``[..., 3D/tp]`` of the whole fused ``qkv`` leaf ``whole``
-    (``[..., 3D]``: q, k, v, each head-major) that hold rank ``rank``'s
-    heads ``[rank*H/tp, (rank+1)*H/tp)`` of q, k and v, in that order."""
-    if cfg.n_head % tp:
-        raise ValueError(f"n_head={cfg.n_head} does not split over tp={tp}")
-    return whole.unflatten(-1, (3, tp, cfg.d_model // tp)).select(-2, rank).flatten(-2)
+    """Columns of the whole fused ``qkv`` leaf ``whole`` (``[..., 3D]``: q,
+    k, v, each head-major) that hold rank ``rank``'s heads
+    (:func:`head_block`) of q, k and v, in that order."""
+    lo, hi = head_block(cfg.n_head, tp, rank)
+    return whole.unflatten(-1, (3, cfg.n_head, cfg.head_dim))[..., lo:hi, :].flatten(-3)
 
 
 def _attn_weights(p, cfg: GPT2Config, mesh: Mesh, dims: dict) -> dict:
@@ -347,7 +366,77 @@ def _mlp_weights(p, cfg: GPT2Config, mesh: Mesh, dims: dict) -> dict:
     return dict(p, **{k: gathered(p[k], mesh, dims[k], cfg.dtype) for k in names})
 
 
-def _moe_sublayer(x, p, cfg: GPT2Config, mesh: Mesh):
+@dataclasses.dataclass(frozen=True)
+class Routing:
+    """The tokens a mixture-of-experts layer routes together (its capacity,
+    positions and aux count them all): the rows of ``group`` consecutive
+    batch shards (dp major; all of them outside the pipeline, the shards
+    of one microbatch inside it) and, where ``seq_split``, every ``sp``
+    rank's block of those rows."""
+
+    group: int = 1
+    seq_split: bool = False
+
+
+def _shard(mesh: Mesh) -> int:
+    """This rank's batch shard: its index over dp x fsdp, dp major."""
+    return mesh.coordinate("dp") * mesh.size("fsdp") + mesh.coordinate("fsdp")
+
+
+def _expert_positions(expert, B: int, S: int, E: int, mesh: Mesh, routing: Routing):
+    """``(pos, counts, N)`` for this rank's ``[B, S]`` tokens routed to
+    ``expert`` (flat, row-major): each token's position among the tokens
+    of its routing group sent to its expert, in the group's global order
+    (batch shard, row, sequence position), each expert's count over the
+    group, and the group's token count. The local positions come from one
+    flat scan of the ``[E, n]`` one-hot (a scan down the n rows of an
+    ``[n, E]`` one-hot runs E threads, 1.2 ms a call on an H100 at
+    n = 8192); the other ranks' counts offset them: per shard, or, where
+    the sequence is split over ``sp``, per row and block."""
+    hot = expert[None, :] == torch.arange(E, device=expert.device)[:, None]
+    cum = hot.reshape(-1).cumsum(0).view(E, -1)
+    starts = F.pad(cum[:-1, -1], (1, 0))
+    counts = cum[:, -1] - starts
+    pos = cum.gather(0, expert[None])[0] - starts[expert] - 1
+    g = routing.group
+    shard = _shard(mesh)
+    first = shard // g * g
+    if not routing.seq_split:
+        if g > 1:
+            every = all_gather(all_gather(counts, mesh, "fsdp"), mesh, "dp").view(-1, E)
+            pos = pos + every[first:shard].sum(0)[expert]
+            counts = every[first:first + g].sum(0)
+        return pos, counts, B * S * g
+    sp = mesh.size("sp")
+    ends = cum.view(E, B, S)[:, :, -1] - starts[:, None]  # [E, B]: in rows up to b
+    before = F.pad(ends[:, :-1], (1, 0))  # [E, B]: in rows before b
+    rows = torch.arange(B * S, device=expert.device) // S
+    in_row = pos - before[expert, rows]
+    every = all_gather(all_gather(all_gather(ends - before, mesh, "sp"), mesh, "fsdp"), mesh, "dp")
+    every = every.view(-1, sp, E, B)[first:first + g]  # [g, sp, E, B]
+    order = every.permute(2, 0, 3, 1).reshape(E, -1)  # the group's order: shard, row, block
+    offsets = (order.cumsum(1) - order).view(E, g, B, sp)
+    offsets = offsets[:, shard - first, :, mesh.coordinate("sp")]  # [E, B]
+    return in_row + offsets[expert, rows], every.sum((0, 1, 3)), B * S * g * sp
+
+
+def _group_sum(x, mesh: Mesh, routing: Routing):
+    """``x`` summed over the ranks of this rank's routing group (see
+    :class:`Routing`), its gradient summed back over them (the gradients
+    are averaged over those axes later)."""
+    if routing.seq_split:
+        x = all_reduce(x, mesh, "sp", grad="sum")
+    k = mesh.size("dp") * mesh.size("fsdp")
+    if routing.group == k:
+        return all_reduce(x, mesh, mesh.spec.batch_axes, grad="sum")
+    if routing.group == 1:
+        return x
+    every = all_gather_dim(all_gather_dim(x[None], mesh, "fsdp", 0), mesh, "dp", 0)  # [k, ...]
+    first = _shard(mesh) // routing.group * routing.group
+    return every[first:first + routing.group].sum(0)
+
+
+def _moe_sublayer(x, p, cfg: GPT2Config, mesh: Mesh, routing: Routing | None = None):
     """Top-1 switch MoE (Fedus et al.) in place of the dense MLP, as the
     reference's: a softmax gate routes each token to one expert under a
     capacity limit; dropped tokens pass through the residual unchanged.
@@ -363,42 +452,33 @@ def _moe_sublayer(x, p, cfg: GPT2Config, mesh: Mesh):
     sink row past the buffer, so no position past capacity is ever an index.
 
     The reference's program is global-view; under a mesh it is computed as
-    such. Over the batch axes (``dp`` and ``fsdp``) each rank holds its rows
-    of the batch: the capacity counts the *global* N, a token's position
-    counts the tokens of lower batch shards (an exclusive scan of their
-    per-expert counts), and ``f`` and ``P`` are global means. Over ``ep``
+    such. The tokens routed together (``routing``, :class:`Routing`) are the
+    global batch (the default), or inside the pipeline one global
+    microbatch. Over the
+    batch axes (``dp`` and ``fsdp``) each rank holds its rows of them: the
+    capacity counts the group's N, a token's position counts the tokens of
+    lower batch shards (an exclusive scan of their per-expert counts), and
+    ``f`` and ``P`` are the group's means. Over ``sp`` each rank holds a
+    block of every row, and a token's position also counts the blocks of
+    lower ``sp`` ranks in its row and those of the rows before. Over ``ep``
     each rank holds ``E / ep`` experts and the whole of its batch rows: it
     serves the tokens routed to its own experts. Over ``tp`` each rank holds
     its slice of every local expert's hidden dim and the routing is
     replicated. The partial outputs are summed over ``ep`` and ``tp``."""
     B, S, D = x.shape
     E, cdt = cfg.n_experts, cfg.dtype
+    routing = routing or Routing(mesh.size("dp") * mesh.size("fsdp"))
     h = _layer_norm(x, p["ln2_scale"], p["ln2_bias"])
     hf = h.reshape(B * S, D).to(cdt)
-    batch_axes = mesh.spec.batch_axes  # ("dp", "fsdp"), dp major
-    shards = mesh.size("dp") * mesh.size("fsdp")
-    N = B * S * shards
-    cap = max(int(cfg.expert_capacity_factor * N / E), 1)
 
     probs = torch.softmax((hf @ p["gate_w"].to(cdt)).float(), dim=-1)  # [n, E]
     gate, expert = probs.max(dim=-1)
-    # A token's position among the tokens routed to its expert, from one
-    # flat scan of the [E, n] one-hot: a scan down the n rows of an
-    # [n, E] one-hot runs E threads, 1.2 ms a call on an H100 at n = 8192.
-    hot = expert[None, :] == torch.arange(E, device=expert.device)[:, None]
-    cum = hot.reshape(-1).cumsum(0).view(E, -1)
-    starts = F.pad(cum[:-1, -1], (1, 0))
-    counts = cum[:, -1] - starts
-    pos = cum.gather(0, expert[None])[0] - starts[expert] - 1
-    if shards > 1:
-        every = all_gather(all_gather(counts, mesh, "fsdp"), mesh, "dp").view(shards, E)
-        shard = mesh.coordinate("dp") * mesh.size("fsdp") + mesh.coordinate("fsdp")
-        pos = pos + every[:shard].sum(0)[expert]
-        counts = every.sum(0)
+    pos, counts, N = _expert_positions(expert, B, S, E, mesh, routing)
+    cap = max(int(cfg.expert_capacity_factor * N / E), 1)
     # Switch load-balancing auxiliary loss: f is the (pre-capacity) routed
-    # fraction, P the mean router probability, both over the global batch.
-    prob_sum = all_reduce(probs.sum(0), mesh, batch_axes, grad="sum")
-    aux = E * torch.sum((counts.float() / N) * (prob_sum / N))
+    # fraction, P the mean router probability, both over the tokens routed
+    # together.
+    aux = E * torch.sum((counts.float() / N) * (_group_sum(probs.sum(0), mesh, routing) / N))
     keep = pos < cap  # over-capacity tokens dropped
 
     E_local = p["exp_w1"].shape[0]
@@ -435,49 +515,71 @@ def hidden(
 
     With grad enabled each block runs under ``cfg.remat``
     (:func:`~ray_tpu_torch.models.common.remat_policy`; "mlp" is "dots"
-    under MoE); without it, as it is. ``mesh``: the mesh the leaves are
-    the local shards of (``dp``, ``fsdp``, ``ep``, ``tp``); needed under
-    any of them but ``dp``, and sharded leaves with no mesh raise
-    ``ValueError``. A mesh with ``sp`` or ``pp`` above 1 raises."""
-    return _hidden(params, tokens, cfg, *_model_mesh(params, cfg, mesh))
+    under MoE and on the ring); without it, as it is. ``mesh``: the mesh
+    the leaves are the local shards of; needed under any axis but ``dp``,
+    and sharded leaves with no mesh raise ``ValueError``. Under ``sp`` the
+    rank computes its block of the sequence and the hidden states are
+    gathered whole; under ``pp`` the layers run as the GPipe schedule of
+    ``cfg.pipeline_microbatches`` microbatches (one where it is 0)."""
+    mesh, dims = _model_mesh(params, cfg, mesh)
+    x, aux, seq = _hidden(params, tokens, cfg, mesh, dims)
+    return (all_gather_dim(x, mesh, "sp", 1) if seq.split else x), aux
 
 
 def _model_mesh(params: Params, cfg: GPT2Config, mesh: Mesh | None) -> tuple[Mesh, dict]:
     """The mesh of a call and the leaves' fsdp dims on it, resolved once a
     call (:func:`~ray_tpu_torch.models.common.model_mesh`)."""
-    _check_supported(cfg)
     return model_mesh(params, cfg, mesh, param_logical_specs(cfg))
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh: Mesh, dims: dict):
-    S = tokens.shape[1]
+    """``(x, aux, seq)``: the hidden states of this rank's block ``seq`` of
+    the whole rows ``tokens`` (all of it but under ``sp``)."""
+    B, S = tokens.shape
+    seq = seq_shard(mesh, S)
+    tokens = seq.take(tokens)
     x = vocab_parallel_embed(gathered(params["wte"], mesh, dims["wte"], cfg.dtype), tokens, mesh)
-    x = x + gathered(params["wpe"][:S], mesh, dims["wpe"], cfg.dtype)[None]
-    remat = remat_policy(cfg, x)  # raises on an unknown policy, as the reference does
+    wpe = params["wpe"][seq.start:seq.start + seq.length]  # the block's global positions
+    x = x + gathered(wpe, mesh, dims["wpe"], cfg.dtype)[None]
+    pipelined = mesh.size("pp") > 1
+    # raises on an unknown policy, as the reference does
+    remat = remat_policy(cfg, x, ring=seq.split and not pipelined)
     if not torch.is_grad_enabled():
         remat = "none"  # nothing to save for a backward: run each block as it is
+    n_micro = max(cfg.pipeline_microbatches, 1)
+    if pipelined:
+        routing = Routing(pipeline_microbatches(B, n_micro, mesh)[1], seq.split)
+    else:  # the global batch
+        routing = Routing(mesh.size("dp") * mesh.size("fsdp"), seq.split)
 
     def attn(x, p):
-        return _attn_sublayer(x, _attn_weights(p, cfg, mesh, dims), cfg, mesh)
+        return _attn_sublayer(x, _attn_weights(p, cfg, mesh, dims), cfg, mesh, seq, pipelined)
 
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.n_experts > 0:
+
+        def mlp(x, p):
+            return _moe_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh, routing)
+
+        def block(x, p):
+            return remat_block(attn, mlp, x, p, remat)
+
+    else:
+
+        def mlp(x, p):
+            return _mlp_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh)
+
+        def block(x, p):
+            return remat_block(attn, mlp, x, p, remat), torch.zeros((), device=x.device)
+
     with reshard_after_forward(mesh):
-        if cfg.n_experts > 0:
-
-            def moe(x, p):
-                return _moe_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh)
-
-            for p in unbind_layers(params):
-                x, layer_aux = remat_block(attn, moe, x, p, remat)
-                aux = aux + layer_aux
+        if pipelined:
+            x, aux = pipelined_blocks(params["blocks"], x, block, mesh, n_micro=n_micro)
         else:
-
-            def mlp(x, p):
-                return _mlp_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh)
-
+            aux = torch.zeros((), dtype=torch.float32, device=x.device)
             for p in unbind_layers(params):
-                x = remat_block(attn, mlp, x, p, remat)
-    return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]), aux
+                x, layer_aux = block(x, p)
+                aux = aux + layer_aux
+    return _layer_norm(x, params["lnf_scale"], params["lnf_bias"]), aux, seq
 
 
 def _head(params: Params, cfg: GPT2Config, mesh: Mesh, dims: dict) -> torch.Tensor:
@@ -488,10 +590,12 @@ def _head(params: Params, cfg: GPT2Config, mesh: Mesh, dims: dict) -> torch.Tens
 
 def forward(params: Params, tokens: torch.Tensor, cfg: GPT2Config, mesh=None) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, vocab] (activation dtype).
-    Tied embeddings: logits = x @ wte^T (gathered over ``tp`` under a mesh)."""
+    Tied embeddings: logits = x @ wte^T (gathered over ``tp``, and over
+    ``sp`` where the sequence is split, under a mesh)."""
     mesh, dims = _model_mesh(params, cfg, mesh)
-    x = _hidden(params, tokens, cfg, mesh, dims)[0]
-    return all_gather_dim(x @ _head(params, cfg, mesh, dims).T, mesh, "tp", -1)
+    x, _, seq = _hidden(params, tokens, cfg, mesh, dims)
+    logits = all_gather_dim(x @ _head(params, cfg, mesh, dims).T, mesh, "tp", -1)
+    return all_gather_dim(logits, mesh, "sp", 1) if seq.split else logits
 
 
 def loss_fn(params: Params, batch: dict, cfg: GPT2Config, mesh=None) -> tuple[torch.Tensor, dict]:
@@ -504,11 +608,15 @@ def loss_fn(params: Params, batch: dict, cfg: GPT2Config, mesh=None) -> tuple[to
     Under ``tp`` both are vocab-parallel. Under MoE the loss is
     ``ce + moe_aux_weight * moe_aux`` and the metrics add ``"moe_aux"``;
     ``"loss"`` stays the cross-entropy. The metrics stay on the device.
-    ``mesh`` as for :func:`hidden`; the loss is this rank's rows' mean."""
+    ``mesh`` as for :func:`hidden`; the loss is the mean over this rank's
+    rows, and under ``sp`` over its block of their positions, taken after
+    the next-token shift."""
     inputs, targets = split_batch(batch)
     mesh, dims = _model_mesh(params, cfg, mesh)
-    x, moe_aux = _hidden(params, inputs, cfg, mesh, dims)
-    ce, metrics = lm_loss(x, _head(params, cfg, mesh, dims), targets, cfg.loss_chunk, mesh)
+    x, moe_aux, seq = _hidden(params, inputs, cfg, mesh, dims)
+    ce, metrics = lm_loss(
+        x, _head(params, cfg, mesh, dims), seq.take(targets), cfg.loss_chunk, mesh, seq.split
+    )
     if cfg.n_experts == 0:
         return ce, metrics
     metrics["moe_aux"] = moe_aux.detach()

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.common import gather_vocab, vocab_parallel_embed
-from ray_tpu_torch.models.gpt2 import GPT2Config, _layer_norm, layer_params
+from ray_tpu_torch.models.gpt2 import GPT2Config, _layer_norm, head_block, layer_params
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.parallel.mesh import Mesh, local_mesh
 from ray_tpu_torch.parallel.sharding import all_reduce_
@@ -60,10 +60,11 @@ def init_kv_cache(
 
 
 def local_heads(cfg: GPT2Config, mesh: Mesh) -> tuple[int, int]:
-    """(query heads, KV heads) of one rank under ``mesh``'s ``tp``: both
-    ``n_head / tp`` (multi-head attention)."""
-    H = cfg.n_head // mesh.size("tp")
-    return H, H
+    """(query heads, KV heads) of one rank under ``mesh``'s ``tp``: both its
+    block of heads (:func:`~ray_tpu_torch.models.gpt2.head_block`; uneven
+    where ``tp`` does not divide them), as in multi-head attention."""
+    lo, hi = head_block(cfg.n_head, mesh.size("tp"), mesh.coordinate("tp"))
+    return hi - lo, hi - lo
 
 
 def _check_dense(cfg: GPT2Config) -> None:

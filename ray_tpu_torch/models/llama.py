@@ -24,8 +24,12 @@ under ``tp`` ``wq`` is split by heads, SwiGLU by columns (``w_gate``,
 ``w_up``) and rows (``w_down``), ``wo`` by rows, and the embedding and
 ``lm_head`` by vocabulary. ``wk``/``wv`` stay whole over ``tp``; each rank
 projects only the KV heads its query heads read, so its gradient of them
-is partial and is summed over ``tp``. Ring attention over ``sp`` and the
-pipeline over ``pp`` raise.
+is partial and is summed over ``tp``. Over ``sp`` each rank takes a block
+of the sequence, with RoPE at the block's global positions, and attention
+runs over the ring with K/V repeated to the query heads first; over
+``pp`` the stacked layers run as the GPipe schedule of
+``cfg.pipeline_microbatches`` microbatches
+(:func:`~ray_tpu_torch.models.common.pipelined_blocks`).
 """
 
 from __future__ import annotations
@@ -37,18 +41,22 @@ import torch
 import torch.nn.functional as F
 
 from ray_tpu_torch.models.common import (
+    SeqShard,
     gathered,
     lm_loss,
     model_mesh,
+    pipelined_blocks,
     remat_block,
     remat_policy,
     reshard_after_forward,
+    seq_shard,
+    sequence_attention,
     sharded_layers,
     split_batch,
     unbind_layers,
     vocab_parallel_embed,
 )
-from ray_tpu_torch.models.gpt2 import layer_params  # the same stacked layout
+from ray_tpu_torch.models.gpt2 import head_block, layer_params  # the same stacked layout
 from ray_tpu_torch.ops.attention import causal_attention
 from ray_tpu_torch.parallel.mesh import Mesh, local_mesh
 from ray_tpu_torch.parallel.sharding import all_gather_dim, all_reduce, grad_all_reduce
@@ -78,6 +86,9 @@ class LlamaConfig:
     # LM-head loss: sequence positions per chunk of the rematerialized
     # logits (0: one unchunked product).
     loss_chunk: int = 128
+    # GPipe microbatches over the mesh's pp axis, as GPT2Config's (one
+    # microbatch where it is 0 and pp is above 1).
+    pipeline_microbatches: int = 0
 
     @property
     def head_dim(self) -> int:
@@ -247,19 +258,41 @@ def _qkv_rope(x, p, cfg: LlamaConfig, cos, sin, mesh: Mesh = local_mesh()):
     )
 
 
-def _kv_heads(cfg: LlamaConfig, mesh: Mesh) -> tuple[int, int]:
-    """The KV heads ``[lo, hi)`` that this rank's query heads read: rank r
-    holds query heads ``r*H/tp ... (r+1)*H/tp - 1``, and query head ``h``
-    reads KV head ``h // (H / KH)``. Raises unless the heads split over
-    ``tp`` and each local KV head serves the same number of them."""
+def kv_heads(cfg: LlamaConfig, tp: int, rank: int) -> list[int]:
+    """The KV heads, in order, that rank ``rank`` of ``tp`` keeps for its
+    query heads (:func:`~ray_tpu_torch.models.gpt2.head_block`; query head ``h`` reads KV head
+    ``h // (n_head / n_kv_head)``): each it reads once, where every one of
+    them serves as many of its query heads as the others (a block of whole
+    groups, a part of one group that ranks share, or one head of each of
+    several groups); else one for each query head, a KV head kept as often
+    as its query heads read it. Either way the rank's query head ``i``
+    reads its KV head ``i // (H_local / KH_local)``, as the grouped
+    attention paths take it."""
+    lo, hi = head_block(cfg.n_head, tp, rank)
+    group = cfg.n_head // cfg.n_kv_head
+    reads = [h // group for h in range(lo, hi)]
+    once = sorted(set(reads))
+    if all(reads.count(k) * len(once) == len(reads) for k in once):
+        return once
+    return reads
+
+
+def kv_columns(t: torch.Tensor, heads: list[int], head_dim: int) -> torch.Tensor:
+    """The columns of ``t [..., n_kv_head * head_dim]`` of ``heads`` in
+    order: a view where they are one contiguous run."""
+    if heads == list(range(heads[0], heads[-1] + 1)):
+        return t[..., heads[0] * head_dim:(heads[-1] + 1) * head_dim]
+    return torch.cat([t[..., h * head_dim:(h + 1) * head_dim] for h in heads], dim=-1)
+
+
+def _train_kv_heads(cfg: LlamaConfig, mesh: Mesh) -> list[int]:
+    """:func:`kv_heads` of this rank in training, where ``wq`` is split
+    by the rule's even column blocks: raises unless ``tp`` divides the
+    query heads."""
     tp = mesh.size("tp")
-    H, group = cfg.n_head // tp, cfg.n_head // cfg.n_kv_head
-    if cfg.n_head % tp or (H % group and group % H):
-        raise ValueError(
-            f"n_head={cfg.n_head} over n_kv_head={cfg.n_kv_head} does not split over tp={tp}"
-        )
-    r = mesh.coordinate("tp")
-    return r * H // group, ((r + 1) * H - 1) // group + 1
+    if cfg.n_head % tp:
+        raise ValueError(f"n_head={cfg.n_head} does not split over tp={tp}")
+    return kv_heads(cfg, tp, mesh.coordinate("tp"))
 
 
 def _attn_weights(p, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> dict:
@@ -271,11 +304,10 @@ def _attn_weights(p, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> dict:
     Off such a mesh the leaves as they are: the sublayer casts them."""
     if not sharded_layers(mesh):
         return p
-    lo, hi = _kv_heads(cfg, mesh)
-    Dh = cfg.head_dim
+    heads = _train_kv_heads(cfg, mesh)
 
     def kv(t):
-        return t[..., lo * Dh: hi * Dh]
+        return kv_columns(t, heads, cfg.head_dim)
 
     out = dict(p, **{k: gathered(p[k], mesh, dims[k], cfg.dtype) for k in ("wq", "wo")})
     for k in ("wk", "wv"):
@@ -292,11 +324,24 @@ def _mlp_weights(p, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> dict:
     return dict(p, **{k: gathered(p[k], mesh, dims[k], cfg.dtype) for k in names})
 
 
-def _attn_sublayer(x, p, cfg: LlamaConfig, cos, sin, mesh: Mesh = local_mesh()):
+def _attn_sublayer(x, p, cfg: LlamaConfig, cos, sin, mesh: Mesh = local_mesh(),
+                   seq: SeqShard | None = None, pipelined: bool = False):
+    """``x`` plus attention over this rank's heads, ``cos``/``sin`` the
+    rotary rows of ``x``'s positions ``seq`` (all of them by default).
+    K/V are repeated to the query heads before the ring where the sequence
+    is split over ``sp``, as the reference repeats them; inside the
+    pipeline they are gathered whole over ``sp`` first, then repeated
+    (:func:`~ray_tpu_torch.models.common.sequence_attention`)."""
     B, S, D = x.shape
     q, k, v = _qkv_rope(x, p, cfg, cos, sin, mesh)
     group = q.shape[1] // k.shape[1]
-    attn = causal_attention(q, expand_kv(k, group), expand_kv(v, group), impl=cfg.attn_impl)
+
+    def whole(q, k, v):
+        return causal_attention(q, k, v, impl=cfg.attn_impl)
+
+    seq = seq or SeqShard(0, S, False)
+    attn = sequence_attention(q, k, v, mesh, seq, pipelined, whole,
+                              expand=lambda t: expand_kv(t, group))
     attn = attn.transpose(1, 2).reshape(B, S, -1)
     return x + all_reduce(attn @ p["wo"].to(cfg.dtype), mesh, "tp", grad="identity")
 
@@ -313,12 +358,17 @@ def hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) ->
     """tokens [B, S] int -> final-RMSNorm hidden states [B, S, d_model].
 
     With grad enabled each block runs under ``cfg.remat``
-    (:func:`~ray_tpu_torch.models.common.remat_policy`); without it, as it
-    is. ``mesh``: the mesh the leaves are the local shards of (``dp``,
-    ``fsdp``, ``ep``, ``tp``); needed under ``fsdp`` or ``tp``, and sharded
-    leaves with no mesh raise ``ValueError``. A mesh with ``sp`` (ring
-    attention) or ``pp`` (the pipeline) above 1 raises."""
-    return _hidden(params, tokens, cfg, *_model_mesh(params, cfg, mesh))
+    (:func:`~ray_tpu_torch.models.common.remat_policy`; "mlp" is "dots" on
+    the ring); without it, as it is. ``mesh``: the mesh the leaves are the
+    local shards of; needed under any axis but ``dp``, and sharded leaves
+    with no mesh raise ``ValueError``. Under ``sp`` the rank computes its
+    block of the sequence (RoPE at the block's global positions) and the
+    hidden states are gathered whole; under ``pp`` the layers run as the
+    GPipe schedule of ``cfg.pipeline_microbatches`` microbatches (one
+    where it is 0), as ``ray_tpu/models/llama.py:210-275``."""
+    mesh, dims = _model_mesh(params, cfg, mesh)
+    x, seq = _hidden(params, tokens, cfg, mesh, dims)
+    return all_gather_dim(x, mesh, "sp", 1) if seq.split else x
 
 
 def _model_mesh(params: Params, cfg: LlamaConfig, mesh: Mesh | None) -> tuple[Mesh, dict]:
@@ -328,23 +378,37 @@ def _model_mesh(params: Params, cfg: LlamaConfig, mesh: Mesh | None) -> tuple[Me
 
 
 def _hidden(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh: Mesh, dims: dict):
+    """``(x, seq)``: the hidden states of this rank's block ``seq`` of the
+    whole rows ``tokens`` (all of it but under ``sp``)."""
     S = tokens.shape[1]
+    seq = seq_shard(mesh, S)
+    tokens = seq.take(tokens)
     x = vocab_parallel_embed(gathered(params["wte"], mesh, dims["wte"], cfg.dtype), tokens, mesh)
-    cos, sin = rope_tables(cfg, S, tokens.device)
-    remat = remat_policy(cfg, x)  # raises on an unknown policy, as the reference does
+    cos, sin = (seq.take(t, 0) for t in rope_tables(cfg, S, tokens.device))  # global positions
+    pipelined = mesh.size("pp") > 1
+    # raises on an unknown policy, as the reference does
+    remat = remat_policy(cfg, x, ring=seq.split and not pipelined)
     if not torch.is_grad_enabled():
         remat = "none"  # nothing to save for a backward: run each block as it is
 
     def attn(x, p):
-        return _attn_sublayer(x, _attn_weights(p, cfg, mesh, dims), cfg, cos, sin, mesh)
+        return _attn_sublayer(x, _attn_weights(p, cfg, mesh, dims), cfg, cos, sin, mesh, seq,
+                              pipelined)
 
     def mlp(x, p):
         return _mlp_sublayer(x, _mlp_weights(p, cfg, mesh, dims), cfg, mesh)
 
+    def block(x, p):
+        return remat_block(attn, mlp, x, p, remat), torch.zeros((), device=x.device)
+
     with reshard_after_forward(mesh):
-        for p in unbind_layers(params):
-            x = remat_block(attn, mlp, x, p, remat)
-    return _rms_norm(x, params["final_norm"], cfg.rms_eps)
+        if pipelined:
+            n_micro = max(cfg.pipeline_microbatches, 1)
+            x = pipelined_blocks(params["blocks"], x, block, mesh, n_micro=n_micro)[0]
+        else:
+            for p in unbind_layers(params):
+                x = remat_block(attn, mlp, x, p, remat)
+    return _rms_norm(x, params["final_norm"], cfg.rms_eps), seq
 
 
 def _head(params: Params, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> torch.Tensor:
@@ -355,10 +419,12 @@ def _head(params: Params, cfg: LlamaConfig, mesh: Mesh, dims: dict) -> torch.Ten
 
 def forward(params: Params, tokens: torch.Tensor, cfg: LlamaConfig, mesh=None) -> torch.Tensor:
     """tokens [B, S] int -> logits [B, S, vocab] (activation dtype;
-    gathered over ``tp`` under a mesh)."""
+    gathered over ``tp``, and over ``sp`` where the sequence is split,
+    under a mesh)."""
     mesh, dims = _model_mesh(params, cfg, mesh)
-    x = _hidden(params, tokens, cfg, mesh, dims)
-    return all_gather_dim(x @ _head(params, cfg, mesh, dims).T, mesh, "tp", -1)
+    x, seq = _hidden(params, tokens, cfg, mesh, dims)
+    logits = all_gather_dim(x @ _head(params, cfg, mesh, dims).T, mesh, "tp", -1)
+    return all_gather_dim(logits, mesh, "sp", 1) if seq.split else logits
 
 
 def loss_fn(params: Params, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[torch.Tensor, dict]:
@@ -366,11 +432,14 @@ def loss_fn(params: Params, batch: dict, cfg: LlamaConfig, mesh=None) -> tuple[t
     batch contract of :func:`ray_tpu_torch.models.gpt2.loss_fn`. The
     untied head ``lm_head [D, V]`` goes to the loss transposed, as at
     ``ray_tpu/models/llama.py:298-301``; under ``tp`` it is this rank's
-    vocabulary columns and the loss is vocab-parallel."""
+    vocabulary columns and the loss is vocab-parallel. Under ``sp`` the
+    loss is the mean over this rank's block of the positions, taken after
+    the next-token shift."""
     inputs, targets = split_batch(batch)
     mesh, dims = _model_mesh(params, cfg, mesh)
-    x = _hidden(params, inputs, cfg, mesh, dims)
-    return lm_loss(x, _head(params, cfg, mesh, dims), targets, cfg.loss_chunk, mesh)
+    x, seq = _hidden(params, inputs, cfg, mesh, dims)
+    head = _head(params, cfg, mesh, dims)
+    return lm_loss(x, head, seq.take(targets), cfg.loss_chunk, mesh, seq.split)
 
 
 def num_params(cfg: LlamaConfig) -> int:

@@ -30,13 +30,14 @@ from __future__ import annotations
 import torch
 
 from ray_tpu_torch.models.common import gather_vocab, vocab_parallel_embed
+from ray_tpu_torch.models.gpt2 import head_block
 from ray_tpu_torch.models.llama import (
     LlamaConfig,
-    _kv_heads,
     _mlp_sublayer,
     _qkv_rope,
     _rms_norm,
     expand_kv,
+    kv_heads,
     layer_params,
     rope_tables,
 )
@@ -68,11 +69,13 @@ def init_kv_cache(
 
 def local_heads(cfg: LlamaConfig, mesh: Mesh) -> tuple[int, int]:
     """(query heads, KV heads) of one rank under ``mesh``'s ``tp``: its
-    ``n_head / tp`` query heads and the KV heads they read
-    (:func:`~ray_tpu_torch.models.llama._kv_heads`; ranks whose query heads
-    share one KV head each hold it)."""
-    lo, hi = _kv_heads(cfg, mesh)
-    return cfg.n_head // mesh.size("tp"), hi - lo
+    block of query heads (:func:`~ray_tpu_torch.models.gpt2.head_block`,
+    uneven where ``tp`` does not divide them) and the KV heads it keeps
+    for them (:func:`~ray_tpu_torch.models.llama.kv_heads`; ranks whose
+    query heads share a KV head each hold it)."""
+    tp, r = mesh.size("tp"), mesh.coordinate("tp")
+    lo, hi = head_block(cfg.n_head, tp, r)
+    return hi - lo, len(kv_heads(cfg, tp, r))
 
 
 def _attn_out(x, attn, p, cfg: LlamaConfig, mesh: Mesh = local_mesh()):

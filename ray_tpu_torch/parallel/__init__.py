@@ -4,8 +4,9 @@
 Every axis (dp / fsdp / tp / sp / pp / ep) is a named axis of one
 ``DeviceMesh``; parameters are placed by logical rules, each rank holding its
 local shard, and collectives are explicit ``torch.distributed`` calls. The
-port runs ``dp``, ``fsdp``, ``ep`` and ``tp``; ``sp`` and ``pp`` raise, and the
-reference's ``constrain`` is not ported.
+port runs every axis (``sp`` through ring attention and ``pp`` through the
+GPipe schedule, both over :func:`ppermute`); the reference's ``constrain``
+is not ported.
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -13,7 +14,7 @@ from ray_tpu_torch.parallel.mesh import (
     Mesh,
     MeshSpec,
     auto_spec,
-    check_ported_axes,
+    check_mesh,
     local_mesh,
     make_mesh,
 )
@@ -27,9 +28,12 @@ from ray_tpu_torch.parallel.sharding import (
     all_gather_dim,
     all_reduce,
     all_reduce_,
+    exchange,
     grad_all_reduce,
     logical_to_mesh_spec,
     named_sharding,
+    p2p_transport,
+    ppermute,
     reduce_scatter_dim,
     shard_tree,
     shardings_from_logical,
@@ -42,7 +46,7 @@ __all__ = [
     "make_mesh",
     "auto_spec",
     "local_mesh",
-    "check_ported_axes",
+    "check_mesh",
     "LogicalRules",
     "DEFAULT_RULES",
     "PartitionSpec",
@@ -58,4 +62,7 @@ __all__ = [
     "all_reduce",
     "all_reduce_",
     "grad_all_reduce",
+    "ppermute",
+    "exchange",
+    "p2p_transport",
 ]

@@ -13,8 +13,10 @@ size) beside the ``DeviceMesh``, so the logical rules
 A ``Mesh`` whose axes all have size 1 needs no ``DeviceMesh`` at all
 (:func:`local_mesh`): nothing is ever communicated over a size-1 axis.
 
-The port runs the ``dp``, ``fsdp``, ``ep`` and ``tp`` axes;
-:func:`check_ported_axes` raises for a mesh with ``sp`` or ``pp`` above 1.
+The port runs every axis: ``dp``, ``fsdp``, ``ep`` and ``tp`` as the
+earlier slices did, ``sp`` (ring attention) and ``pp`` (the GPipe
+schedule). :func:`check_mesh` only checks that a model was given a
+:class:`Mesh`.
 """
 
 from __future__ import annotations
@@ -27,13 +29,6 @@ import torch.distributed as dist
 # Outer -> inner, as in the reference: the outermost axes tolerate the most
 # latency (pipeline, data), the innermost need the tightest coupling (tensor).
 AXIS_NAMES = ("pp", "dp", "fsdp", "ep", "sp", "tp")
-
-# The axes the port's models and train step run; the others raise.
-PORTED_AXES = ("dp", "fsdp", "ep", "tp")
-_NOT_PORTED = (
-    "the port runs the dp, fsdp, ep and tp axes; sp (ring attention) and pp "
-    "(the pipeline) are not ported yet"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -141,16 +136,11 @@ def local_mesh() -> Mesh:
     return Mesh(MeshSpec())
 
 
-def check_ported_axes(mesh: Any) -> None:
-    """Raise ``NotImplementedError`` naming the first axis of size > 1 that
-    the port does not run (``sp``, ``pp``)."""
+def check_mesh(mesh: Any) -> None:
+    """Raise ``TypeError`` unless ``mesh`` is a :class:`Mesh` (a JAX mesh,
+    say, has no process groups to run over)."""
     if not isinstance(mesh, Mesh):
-        raise NotImplementedError(
-            f"expected a ray_tpu_torch.parallel.Mesh, got {type(mesh).__name__}: {_NOT_PORTED}"
-        )
-    for axis in AXIS_NAMES:
-        if axis not in PORTED_AXES and mesh.size(axis) > 1:
-            raise NotImplementedError(f"mesh axis {axis}={mesh.size(axis)}: {_NOT_PORTED}")
+        raise TypeError(f"expected a ray_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
 
 
 def _largest_factor_leq(n: int, cap: int) -> int:

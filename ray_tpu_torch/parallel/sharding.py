@@ -8,12 +8,16 @@ The reference places a leaf as one global ``jax.Array`` and lets XLA insert
 the collectives. Here each rank holds the **local shard** its rule gives
 (:func:`shard_tree`), and the collectives the ported axes need are explicit
 ``torch.distributed`` calls over one axis's process group (or several axes'
-in turn): :func:`all_reduce`, :func:`grad_all_reduce` and
-:func:`all_gather_dim` carry their gradients through autograd;
-:func:`all_reduce_`, :func:`all_gather` and :func:`reduce_scatter_dim` carry
-none. Each takes the tensors where they are: NCCL and gloo both take CUDA
-tensors for every one of them (gloo stages them through host memory itself;
-checked on the card with torch 2.11). The reference's ``constrain``
+in turn): :func:`all_reduce`, :func:`grad_all_reduce`, :func:`all_gather_dim`
+and :func:`ppermute` carry their gradients through autograd;
+:func:`all_reduce_`, :func:`all_gather`, :func:`reduce_scatter_dim` and
+:func:`exchange` carry none. Each takes the tensors where they are: NCCL
+and gloo both take CUDA tensors for every collective (gloo stages them
+through host memory itself; checked on the card with torch 2.11).
+Point-to-point is the exception: gloo's ``send``/``recv`` take CPU tensors
+only, so under a gloo group :func:`exchange` stages a CUDA tensor through
+pinned host memory itself (:func:`p2p_transport`), and NCCL sends it card
+to card. The reference's ``constrain``
 (``with_sharding_constraint`` inside jit) has no eager counterpart and is
 not ported.
 """
@@ -299,3 +303,85 @@ def all_gather_dim(x: torch.Tensor, mesh: Mesh, axis: str, dim: int) -> torch.Te
     if mesh.size(axis) == 1:
         return x
     return _AllGatherDim.apply(x, mesh, axis, dim % x.dim())
+
+
+# ---------------------------------------------------------------------------
+# Point to point: the ring exchange
+
+
+def p2p_transport(mesh: Mesh, axis: str, device: torch.device) -> str:
+    """How :func:`exchange` moves a tensor on ``device`` between the ranks
+    along ``axis``: ``"nccl"`` (card to card), ``"gloo"`` (host tensors) or
+    ``"gloo-host-staged"`` (a CUDA tensor copied to pinned host memory,
+    exchanged, and copied back: gloo's point-to-point takes host tensors
+    only)."""
+    backend = dist.get_backend(mesh.group(axis))
+    if backend == "gloo" and device.type == "cuda":
+        return "gloo-host-staged"
+    return str(backend)
+
+
+def exchange(
+    send: torch.Tensor | None,
+    like: torch.Tensor | None,
+    mesh: Mesh,
+    axis: str,
+    offset: int,
+) -> torch.Tensor | None:
+    """Send ``send`` to the rank ``offset`` places on along ``axis`` (mod
+    its size) and return what the rank ``offset`` places back sent, into a
+    tensor of ``like``'s shape, dtype and device. Either half may be None:
+    no send, or nothing received (and None returned). The ranks' calls
+    must pair up: a rank sends to the rank that receives from it in the
+    same call. Both halves are posted together (``batch_isend_irecv``), so
+    a ring of ranks never deadlocks on sends that wait for receives. A
+    failed exchange raises. Carries no gradient."""
+    n = mesh.size(axis)
+    if n == 1 or offset % n == 0:
+        return send if like is not None else None
+    group, i = mesh.group(axis), mesh.coordinate(axis)
+    ops, out = [], None
+    if send is not None:
+        send = send.contiguous()
+        if p2p_transport(mesh, axis, send.device) == "gloo-host-staged":
+            send = torch.empty(send.shape, dtype=send.dtype, pin_memory=True).copy_(send)
+        peer = dist.get_global_rank(group, (i + offset) % n)
+        ops.append(dist.P2POp(dist.isend, send, peer, group))
+    if like is not None:
+        staged = p2p_transport(mesh, axis, like.device) == "gloo-host-staged"
+        out = torch.empty(like.shape, dtype=like.dtype, device="cpu" if staged else like.device,
+                          pin_memory=staged)
+        peer = dist.get_global_rank(group, (i - offset) % n)
+        ops.append(dist.P2POp(dist.irecv, out, peer, group))
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if out is not None and out.device != like.device:
+        out = out.to(like.device)
+    return out
+
+
+class _PPermute(torch.autograd.Function):
+    """The ring :func:`exchange` by ``offset`` in forward; the cotangent
+    sent back by ``-offset`` in backward (the transpose of a permutation)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis, offset):
+        ctx.mesh, ctx.axis, ctx.offset = mesh, axis, offset
+        return exchange(x, x, mesh, axis, offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        return exchange(g, g, ctx.mesh, ctx.axis, -ctx.offset), None, None, None
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, offset: int = 1) -> torch.Tensor:
+    """``x`` of the rank ``offset`` places back along ``axis`` (``x``
+    itself where the axis has size 1): every rank sends its ``x`` to the
+    rank ``offset`` places on. The counterpart of ``jax.lax.ppermute`` with
+    ``perm=[(i, (i + offset) % n)]``. Its gradient travels the ring the
+    other way. Every rank along the axis must call it, in the same order
+    as the others, forward and backward."""
+    if mesh.size(axis) == 1:
+        return x
+    return _PPermute.apply(x, mesh, axis, offset)

@@ -6,14 +6,16 @@ eagerly: forward, backward (``torch.autograd.grad``), global-norm clipping
 and AdamW, then ``step + 1``. The state is updated **in place**, the
 counterpart of donation: params and optimizer moments are never held twice.
 
-Over a mesh (:mod:`ray_tpu_torch.parallel`; the dp, fsdp, ep and tp axes)
-each rank holds the local shard of each leaf that its sharding gives,
-takes its rows of the global batch (split over dp x fsdp), and runs the
-collectives itself: every gradient is averaged over dp x fsdp (a leaf
-split over fsdp already holds the sum over fsdp, from its gather's
-reduce-scatter), the global norm sums each shard's squares once, and the
-metrics are the global ones. The models sum the tp and ep parts of a
-gradient themselves. The result is the reference's global-view step.
+Over a mesh (:mod:`ray_tpu_torch.parallel`; every axis: pp, dp, fsdp, ep,
+sp and tp) each rank holds the local shard of each leaf that its sharding
+gives, takes its rows of the global batch (split over dp x fsdp; under sp
+the model takes its block of the sequence), and runs the collectives
+itself: every gradient is averaged over dp x fsdp x sp x pp (a leaf split
+over fsdp already holds the sum over fsdp, from its gather's
+reduce-scatter, and a pipeline stage's layers are its own), the global
+norm sums each shard's squares once, and the metrics are the global ones.
+The models sum the tp and ep parts of a gradient themselves. The result
+is the reference's global-view step.
 
 Not ported: a compiled step. ``compile_train_step`` returns the step as it
 is, with no flop count.
@@ -27,7 +29,7 @@ from typing import Any, Callable
 
 import torch
 
-from ray_tpu_torch.parallel.mesh import Mesh, check_ported_axes
+from ray_tpu_torch.parallel.mesh import Mesh, check_mesh
 from ray_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec, all_reduce_, shard_tree
 from ray_tpu_torch.util.device import resolve_device, set_exact_matmul
 
@@ -183,6 +185,46 @@ def _leaf_axes(shardings: Any, n_leaves: int) -> list[frozenset]:
     return [s.axes for s in tree_leaves(shardings)]
 
 
+def _averaging_axes(mesh: Mesh) -> list[str]:
+    """The mesh axes of size > 1 over which every gradient is averaged:
+    the batch axes (dp, fsdp), whose ranks hold other rows; ``sp``, whose
+    ranks hold other positions of the same rows; and ``pp``, whose ranks
+    all compute the same loss (the pipeline broadcasts the last stage's
+    output). The models sum over tp and ep themselves."""
+    return [a for a in (*mesh.spec.batch_axes, "sp", "pp") if mesh.size(a) > 1]
+
+
+def _row_spec(batch_spec: PartitionSpec) -> PartitionSpec:
+    """``batch_spec`` without ``sp``: the model takes its sequence block
+    itself (after the next-token shift), so the batch leaves are split by
+    rows only."""
+    return PartitionSpec(*(
+        tuple(a for a in ((e,) if isinstance(e, str) else e) if a != "sp") or None
+        if e is not None else None
+        for e in batch_spec
+    ))
+
+
+def _check_seq_split(batch: dict, batch_spec: PartitionSpec, mesh: Mesh) -> None:
+    """Raise ``ValueError`` where ``batch_spec`` splits the sequence over
+    ``sp`` and the sequence (after the shift of the ``{"tokens": [B, S+1]}``
+    form) does not divide into ``sp`` blocks, as placing such a batch
+    fails in the reference."""
+    if mesh.size("sp") == 1 or len(batch_spec) < 2:
+        return
+    entry = batch_spec[1]
+    if entry is None or "sp" not in ((entry,) if isinstance(entry, str) else entry):
+        return
+    form = "targets" in batch
+    S = batch["tokens"].shape[1] - (0 if form else 1)
+    if S % mesh.size("sp"):
+        shape = '{"tokens", "targets"}' if form else '{"tokens": [B, S+1]}'
+        raise ValueError(
+            f"batch_spec {batch_spec!r} splits the sequence over sp={mesh.size('sp')}, and the "
+            f"{shape} batch has S={S} positions"
+        )
+
+
 def make_grad_fn(
     loss_fn: Callable[[dict, Any], tuple[torch.Tensor, dict]],
     *,
@@ -192,42 +234,50 @@ def make_grad_fn(
     """The gradient half of the step: ``fn(params, batch, shardings) ->
     (metrics, grads)``, grads in :func:`tree_leaves` order.
 
-    Over a mesh, this rank takes its block of every batch leaf under
+    Over a mesh, this rank takes its rows of every batch leaf under
     ``batch_spec`` (by default the batch dim over ``MeshSpec.batch_axes``,
     dp major, as the reference's ``P(("dp", "fsdp"))``), so ``loss_fn``'s
-    mean is over its own rows, and the mean of the ranks' losses is the
-    global one. Every gradient is averaged over the batch axes: a leaf
-    that ``shardings`` splits over ``fsdp`` holds the sum over ``fsdp``
-    already (its gather's backward is a reduce-scatter), so it is summed
-    over ``dp`` only; any other leaf is summed over both. No leaf is
-    reduced twice. ``metrics["loss"]`` becomes the global mean and
-    ``metrics["tokens"]`` the global count; other metrics (``moe_aux``)
-    are global already."""
+    mean is over its own rows. A spec that also splits dim 1 over ``sp``
+    (the reference's ``P(("dp", "fsdp"), "sp")``) is taken as it is meant:
+    under ``sp`` the model takes the rank's block of the sequence itself,
+    after the next-token shift, so the rows reach it whole (an ``sp`` the
+    sequence does not divide into raises ``ValueError``, as in the
+    reference); with the default spec it does the same.
+
+    Every gradient is averaged over :func:`_averaging_axes` (dp, fsdp, sp,
+    pp): a leaf that ``shardings`` splits over an axis holds its sum over
+    that axis already (an fsdp gather's backward is a reduce-scatter; each
+    pipeline stage holds only its own layers), so it is summed over the
+    others only. No leaf is reduced twice. ``metrics["loss"]`` becomes the
+    mean over the same axes and ``metrics["tokens"]`` the global count (a
+    model under ``sp`` counts its sequence blocks itself); other metrics
+    (``moe_aux``) are global already."""
     if mesh is not None:
-        check_ported_axes(mesh)
-        batch_sharding = NamedSharding(
-            mesh, batch_spec if batch_spec is not None else PartitionSpec(mesh.spec.batch_axes)
-        )
-        batch_axes = [a for a in mesh.spec.batch_axes if mesh.size(a) > 1]
+        check_mesh(mesh)
+        spec = batch_spec if batch_spec is not None else PartitionSpec(mesh.spec.batch_axes)
+        batch_sharding = NamedSharding(mesh, _row_spec(spec))
+        axes = _averaging_axes(mesh)
     else:
-        batch_axes = []
-    shards = math.prod(mesh.size(a) for a in batch_axes)
+        axes = []
+    shards = math.prod(mesh.size(a) for a in axes)
+    batch_shards = math.prod(mesh.size(a) for a in axes if a in ("dp", "fsdp"))
 
     def grad_fn(params: dict, batch: Any, shardings: Any) -> tuple[dict, list]:
         if mesh is not None:
+            _check_seq_split(batch, spec, mesh)
             batch = {k: batch_sharding.shard(v) for k, v in batch.items()}
         leaves = tree_leaves(params)
         loss, metrics = loss_fn(params, batch)
         grads = list(torch.autograd.grad(loss, leaves))
-        if not batch_axes:
+        if not axes:
             return metrics, grads
-        for i, axes in enumerate(_leaf_axes(shardings, len(grads))):
+        for i, split in enumerate(_leaf_axes(shardings, len(grads))):
             grads[i] = grads[i].contiguous()  # a collective takes a dense buffer
-            all_reduce_(grads[i], mesh, [a for a in batch_axes if a not in axes])
+            all_reduce_(grads[i], mesh, [a for a in axes if a not in split])
             grads[i].div_(shards)
         metrics = dict(metrics)
-        metrics["loss"] = all_reduce_(metrics["loss"].clone(), mesh, batch_axes) / shards
-        metrics["tokens"] = metrics["tokens"] * shards
+        metrics["loss"] = all_reduce_(metrics["loss"].clone(), mesh, axes) / shards
+        metrics["tokens"] = metrics["tokens"] * batch_shards
         return metrics, grads
 
     return grad_fn
@@ -262,12 +312,12 @@ def make_train_step(
     """Build ``step(state, batch) -> (state, metrics)``.
 
     ``loss_fn(params, batch)`` returns ``(scalar_loss, metrics)``; a model
-    under a mesh with fsdp, tp or ep above 1 (or any MoE model) takes the
+    under a mesh with fsdp, ep, sp, tp or pp above 1 (or any MoE model) takes the
     mesh itself (``functools.partial(gpt2.loss_fn, cfg=cfg, mesh=mesh)``). The step
     updates ``state`` in place and returns it with the metrics, which stay
     on the device: nothing in the step waits for the card.
 
-    ``mesh`` (dp, fsdp, ep and tp; sp or pp above 1 raises): ``batch`` is the
+    ``mesh`` (any of pp, dp, fsdp, ep, sp and tp): ``batch`` is the
     **global** batch, as the reference's jitted step takes it; see
     :func:`make_grad_fn` for the rows each rank takes and the averages.
     ``param_shardings`` is the tree the state was made with (by default

@@ -150,30 +150,32 @@ def test_convert_bf16_tree_bit_exact_and_compute_params(models):
 
 
 def test_unported_variants_raise(models):
-    """What the port does not run yet raises: the GPipe pipeline
-    (``pipeline_microbatches``) and a mesh with an sp or pp axis above 1,
-    which is named. MoE and the dp, fsdp, ep and tp axes are ported; leaves
-    that are not the mesh's local shards raise ``ValueError`` naming the
-    mesh: whole leaves under fsdp or tp, and shards given with no mesh."""
+    """Every variant of the reference runs now (the GPipe pipeline's
+    ``pipeline_microbatches``, meshes over sp and pp), so what raises is
+    what the port cannot compute on: leaves that are not the mesh's local
+    shards raise ``ValueError`` naming the mesh (whole leaves under fsdp,
+    tp or pp, shards given with no mesh), a mesh that names a shape only
+    raises where a rank's place on an axis is needed (sp), and a mesh of
+    another kind raises ``TypeError``. Off a mesh the microbatches change
+    nothing, nor do the dp and ep axes of a dense model."""
     _, _, pcfg, pparams = models
     toks = torch.zeros((1, 4), dtype=torch.long)
+    want = pgpt2.forward(pparams, toks, pcfg)
     cfg = dataclasses.replace(pcfg, pipeline_microbatches=2)
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        pgpt2.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="pipeline"):
-        pgpt2.forward(pparams, toks, cfg)
-    for axis in ("sp", "pp"):
-        with pytest.raises(NotImplementedError, match=f"{axis}=2"):
-            pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(**{axis: 2})))
+    assert pgpt2.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert torch.equal(pgpt2.forward(pparams, toks, cfg), want)
+    with pytest.raises(ValueError, match="axis 'sp' has size 2 but this mesh has no DeviceMesh"):
+        pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(sp=2)))
+    with pytest.raises(ValueError, match="blocks hold 2 layers, not 1.*'pp': 2.*mesh="):
+        pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(pp=2)))
     for axis in ("fsdp", "tp"):
         with pytest.raises(ValueError, match=f"'{axis}': 2.*mesh="):
             pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(**{axis: 2})))
     shard = dict(pparams, wte=pparams["wte"][:, : pcfg.d_model // 2])
     with pytest.raises(ValueError, match="no mesh was given.*mesh="):
         pgpt2.forward(shard, toks, pcfg)
-    with pytest.raises(NotImplementedError, match="ring attention"):
+    with pytest.raises(TypeError, match="expected a ray_tpu_torch.parallel.Mesh"):
         pgpt2.forward(pparams, toks, pcfg, mesh=object())
-    want = pgpt2.forward(pparams, toks, pcfg)
     assert torch.equal(pgpt2.forward(pparams, toks, pcfg, mesh=Mesh(MeshSpec(dp=2, ep=2))), want)
 
 

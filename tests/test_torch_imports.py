@@ -16,6 +16,7 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "torch_host_ab.py",
     ROOT / "tests" / "torch_parallel_worker.py",
     ROOT / "tests" / "torch_llm_tp_worker.py",
+    ROOT / "tests" / "torch_seq_pipe_worker.py",
 ]
 
 
@@ -41,7 +42,8 @@ def test_import_pulls_in_no_jax():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.llm, ray_tpu_torch.llm.engine, "
         "ray_tpu_torch.util.flightrec, ray_tpu_torch.core.config, "
-        "ray_tpu_torch.ops.attention, ray_tpu_torch.models.convert, ray_tpu_torch.train.spmd, "
+        "ray_tpu_torch.ops.attention, ray_tpu_torch.ops.ring_attention, "
+        "ray_tpu_torch.models.convert, ray_tpu_torch.train.spmd, "
         "ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')]\n"
         "assert not bad, bad\n"

@@ -204,6 +204,6 @@ def test_entry_points_default_to_the_card(models):
             llama_params_from_numpy(tree, pcfg)
     with pytest.raises(TypeError):
         pdec.init_kv_cache(pcfg, 1, 8)  # device is required
-    with pytest.raises(NotImplementedError, match="ring attention"):
+    with pytest.raises(TypeError, match="expected a ray_tpu_torch.parallel.Mesh"):
         pllama.forward(pparams, torch.zeros((1, 4), dtype=torch.long), pcfg, mesh=object())
     assert pllama.LlamaConfig.llama_125m().head_dim == 64

@@ -63,6 +63,16 @@ JOIN_S = 120
 # the buckets.
 SHAPE = dict(n_layer=2, d_model=64, n_head=2, vocab_size=512, max_seq=256)
 LLAMA_SHAPE = dict(n_layer=2, d_model=64, n_head=4, n_kv_head=2, vocab_size=512, max_seq=128)
+# Degrees that do not divide the heads (the vocabulary and the MLP still
+# divide): GPT-2's 3 heads over tp=2 (1 and 2 a rank); Llama's 10 query
+# heads over 5 KV heads at tp=4 (2, 3, 2 and 3 a rank: rank 1's heads 2-4
+# read KV heads 1, 1, 2 and rank 3's 7-9 read 3, 4, 4, so those ranks keep
+# a KV head for each query head; rank 2's heads 5-6 read KV heads 2 and 3).
+UNEVEN_SHAPES = {
+    "gpt2_3h": dict(n_layer=2, d_model=96, n_head=3, vocab_size=512, max_seq=256),
+    "llama_10h": dict(n_layer=2, d_model=160, n_head=10, n_kv_head=5, vocab_size=512,
+                      max_seq=128),
+}
 SERVE = dict(
     max_slots=3,
     max_seq=256,
@@ -106,7 +116,10 @@ CASES = {
     "llama_paged_chunked_tp4": (4, "llama", dict(kv_block_size=16, prefill_chunk_tokens=32),
                                 (GREEDY, SAMPLED)),
     "llama_spec_dense_tp4": (4, "llama", dict(kv_block_size=0, spec_decode_tokens=K), (GREEDY,)),
+    "gpt2_3h_paged_tp2": (2, "gpt2_3h", dict(kv_block_size=16), (GREEDY,)),
+    "llama_10h_dense_tp4": (4, "llama_10h", dict(kv_block_size=0), (GREEDY,)),
 }
+UNEVEN = [name for name, case in CASES.items() if case[1] in UNEVEN_SHAPES]
 BATCH_CASE = (2, "gpt2", dict(kv_block_size=16))
 
 
@@ -121,8 +134,10 @@ def weights(tmp_path_factory):
     for family, jmod, pcfg, fields, seed in (
         ("gpt2", jgpt2, pgpt2.GPT2Config, SHAPE, 11),
         ("llama", jllama, pllama.LlamaConfig, LLAMA_SHAPE, 12),
+        ("gpt2_3h", jgpt2, pgpt2.GPT2Config, UNEVEN_SHAPES["gpt2_3h"], 13),
+        ("llama_10h", jllama, pllama.LlamaConfig, UNEVEN_SHAPES["llama_10h"], 14),
     ):
-        config = jmod.LlamaConfig if family == "llama" else jmod.GPT2Config
+        config = jmod.LlamaConfig if family.startswith("llama") else jmod.GPT2Config
         jcfg = dataclasses.replace(config.tiny(**fields), dtype=jnp.float32, attn_impl="reference")
         pcfg = pcfg.tiny(**fields)
         rng = np.random.default_rng(seed)
@@ -148,6 +163,7 @@ def _fields(weights, world, family, over):
     jcfg, pfields, path, dpath = weights[family]
     serve = {**SERVE, **over, "tensor_parallelism": world, "weights_path": path}
     jax_fields = dict(serve, model_config=jcfg)
+    family = family.split("_")[0]  # the shapes' model family
     port_fields = dict(serve, model_config=(family, pfields))
     if over.get("spec_decode_tokens"):
         jax_fields.update(draft_model_config=dataclasses.replace(jcfg, n_layer=1),
@@ -247,9 +263,11 @@ def _ring() -> list:
             for e in ring["events"]]
 
 
-def _jax_serve(weights, name):
+def _jax_serve(weights, name, tp=None):
+    """The JAX engine's results on a case, at its degree or at ``tp``."""
     world, family, over, runs = CASES[name]
-    engine = JEngine(JLLMConfig(**_fields(weights, world, family, over)[0]))
+    fields = _fields(weights, world, family, over)[0]
+    engine = JEngine(JLLMConfig(**dict(fields, tensor_parallelism=tp or world)))
     firsts = {}
     sample = engine._sample
 
@@ -287,7 +305,9 @@ def runs(weights, tmp_path_factory):
         for world in (2, 4):
             tmp = tmp_path_factory.mktemp(f"world{world}")
             started[world] = (_start(world, _worker_cases(weights, world), tmp), tmp)
-        want = {name: _jax_serve(weights, name) for name in CASES}
+        # The uneven cases' JAX engines serve in their tests (_want), so the
+        # fixture's work stays what it was before them.
+        want = {name: _jax_serve(weights, name) for name in CASES if name not in UNEVEN}
         want["batch"] = _jax_batch(weights)
         ranks = {w: _join(*started.pop(w)) for w in (2, 4)}
     finally:
@@ -301,18 +321,43 @@ def runs(weights, tmp_path_factory):
     return ranks, want
 
 
-def _local_kv_heads(family, world):
-    if family == "gpt2":
-        return SHAPE["n_head"] // world
-    H, group = LLAMA_SHAPE["n_head"] // world, LLAMA_SHAPE["n_head"] // LLAMA_SHAPE["n_kv_head"]
-    return max(H // group, 1)  # whole groups, or one KV head that ranks share
+def _want(runs, weights, name):
+    """The JAX engine's results on a case: from the fixture, or served here
+    (once) for an uneven case."""
+    want = runs[1]
+    if name not in want:
+        saved = {f: getattr(JCONFIG, f) for f in ("metrics_enabled", "flightrec", "spec_decode")}
+        JCONFIG.metrics_enabled = JCONFIG.flightrec = JCONFIG.spec_decode = True
+        try:
+            want[name] = _jax_serve(weights, name)
+        finally:
+            for f, v in saved.items():
+                setattr(JCONFIG, f, v)
+    return want[name]
+
+
+def _shape(family):
+    return UNEVEN_SHAPES.get(family) or (LLAMA_SHAPE if family == "llama" else SHAPE)
+
+
+def _local_heads(family, world, rank):
+    """(query heads, KV heads) rank ``rank`` holds: a contiguous block of
+    ``n_head * r // world`` to ``n_head * (r+1) // world``, and the KV heads
+    it reads, once each where each serves as many of its query heads, else
+    one per query head."""
+    shape = _shape(family)
+    lo, hi = rank * shape["n_head"] // world, (rank + 1) * shape["n_head"] // world
+    if not family.startswith("llama"):
+        return hi - lo, hi - lo
+    reads = [h * shape["n_kv_head"] // shape["n_head"] for h in range(lo, hi)]
+    uniform = len({reads.count(k) for k in reads}) == 1
+    return hi - lo, len(set(reads)) if uniform else len(reads)
 
 
 @pytest.mark.parametrize("name", list(CASES))
-def test_tp_engine_matches_jax(runs, name):
+def test_tp_engine_matches_jax(runs, weights, name):
     world, family, over, _ = CASES[name]
-    ranks, want = runs
-    want = want[name]
+    ranks, want = runs[0], _want(runs, weights, name)
     got = [r[name] for r in ranks[world]]
     for rank, g in enumerate(got):
         assert g["streams"] == want["streams"], rank
@@ -351,18 +396,17 @@ def test_each_rank_holds_its_heads_and_gathers_nothing_per_layer(runs, name):
     and vocabulary rows; one decode step issues 2 all-reduces a layer, one
     for the embedding, and one gather of the logits."""
     world, family, _, _ = CASES[name]
-    shape = LLAMA_SHAPE if family == "llama" else SHAPE
+    shape = _shape(family)
     L, D, Dh = shape["n_layer"], shape["d_model"], shape["d_model"] // shape["n_head"]
-    for g in (r[name] for r in runs[0][world]):
-        assert g["kv_shape"][:3:2] == (L, _local_kv_heads(family, world))
+    for rank, g in enumerate(r[name] for r in runs[0][world]):
+        H, KH = _local_heads(family, world, rank)
+        assert g["kv_shape"][:3:2] == (L, KH)
         assert g["kv_shape"][3:] in ((16, Dh), (SERVE["max_seq"], Dh))
         assert g["vocab_rows"] == (shape["vocab_size"] // world, D)
-        H = shape["n_head"] // world
-        if family == "gpt2":
+        if family.startswith("gpt2"):
             assert g["weight_shapes"] == {"qkv_w": (L, D, 3 * H * Dh), "proj_w": (L, H * Dh, D)}
         else:
-            assert g["weight_shapes"] == {"wq": (L, D, H * Dh),
-                                          "wk": (L, D, _local_kv_heads(family, world) * Dh),
+            assert g["weight_shapes"] == {"wq": (L, D, H * Dh), "wk": (L, D, KH * Dh),
                                           "wo": (L, H * Dh, D)}
         assert g["step_calls"] == {"all_reduce": 2 * L + 1, "all_gather_into_tensor": 1}
 
@@ -389,5 +433,31 @@ def test_tp_without_a_process_group_raises(weights):
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         PEngine(config, device="cpu")
-    with pytest.raises(ValueError, match="does not divide n_head=2"):
+    with pytest.raises(ValueError, match="tensor_parallelism=4 is more than n_head=2"):
         PEngine(dataclasses.replace(config, tensor_parallelism=4), device="cpu")
+
+
+@pytest.mark.parametrize("name", UNEVEN)
+def test_jax_engine_serves_uneven_heads_as_at_tp1(runs, weights, name):
+    """The reference serves a degree that does not divide the heads (XLA
+    splits the fused columns whatever the heads), and its greedy streams
+    equal its own at tensor_parallelism=1: so the port serves it too
+    (test_tp_engine_matches_jax holds the port's ranks to these streams)."""
+    assert _want(runs, weights, name)["streams"] == _jax_serve(weights, name, tp=1)["streams"]
+    assert CASES[name][0] > 1 and _shape(CASES[name][1])["n_head"] % CASES[name][0]
+
+
+def test_jax_engine_serves_fewer_heads_than_ranks(weights):
+    """The reference also serves a degree above the head count (GPT-2 with
+    one head at tensor_parallelism=2), with its own tp=1 streams; the port
+    refuses it (test_failing_configurations_raise_on_every_rank), since a
+    rank would hold no head: the gap ROADMAP Queue 3 records."""
+    jcfg = dataclasses.replace(weights["gpt2"][0], n_head=1)
+    prompts = _prompts()[:2]
+    streams = [
+        [o["token_ids"] for o in JEngine(JLLMConfig(
+            model_config=jcfg, **{**SERVE, "prefill_buckets": (64,)}, tensor_parallelism=tp,
+        )).generate(prompts, JSampling(**GREEDY))]
+        for tp in (1, 2)
+    ]
+    assert streams[0] == streams[1]

@@ -15,7 +15,9 @@ that world in it), against JAX's *unsharded* results on the same numpy
 inputs: world 2 runs dense GPT-2 under ``dp=2`` (two steps), MoE GPT-2
 under ``ep=2`` (loss and gradients), MoE at capacity 0.25 under ``dp=2``
 (global capacity, positions and aux), Llama under ``dp=2`` (one step),
-the unported axes and a mesh for 4 devices (each must raise); world 4 runs
+GPT-2 under ``sp=2`` (ring attention) and under ``pp=2`` (the GPipe
+schedule; loss, gradients and two steps against JAX's unsharded ones), and
+a mesh for 4 devices (which must raise); world 4 runs
 MoE under ``dp=2 x ep=2`` (one step). The ``fsdp`` and ``tp`` cases hold
 the loss, gradients and global norm of one gradient pass and the params
 after two steps: world 2 runs GPT-2 under ``fsdp=2`` (nothing
@@ -87,7 +89,9 @@ MESHES = {
     "tp4": dict(tp=4),
     "ep2xtp2": dict(ep=2, tp=2),
 }
-UNPORTED = ("sp", "pp")
+# The sequence and pipeline axes, each run at size 2 here
+# (test_torch_seq_pipe.py holds the rest of their cases).
+SEQ_PIPE_AXES = {"sp": dict(sp=2), "pp": dict(pp=2)}
 OPT_ONE = dict(lr=1e-3, warmup_steps=0, total_steps=4)  # the first step moves
 OPT_TWO = dict(lr=1e-3, warmup_steps=1, total_steps=4)
 
@@ -222,10 +226,11 @@ def test_local_mesh_and_shapes_without_a_process_group():
         shape_only.coordinate("ep")
     with pytest.raises(RuntimeError, match="process group"):
         ppar.make_mesh(ppar.MeshSpec(), "cpu")
-    for axis in UNPORTED:
-        with pytest.raises(NotImplementedError, match=f"{axis}=2"):
-            ppar.check_ported_axes(ppar.Mesh(ppar.MeshSpec(**{axis: 2})))
-    ppar.check_ported_axes(ppar.Mesh(ppar.MeshSpec(dp=2, fsdp=2, ep=4, tp=2)))
+    for axis in SEQ_PIPE_AXES:  # every axis runs: a mesh over sp or pp is a mesh like any
+        ppar.check_mesh(ppar.Mesh(ppar.MeshSpec(**{axis: 2})))
+    ppar.check_mesh(ppar.Mesh(ppar.MeshSpec(dp=2, fsdp=2, ep=4, tp=2)))
+    with pytest.raises(TypeError, match="expected a ray_tpu_torch.parallel.Mesh"):
+        ppar.check_mesh(jpar.make_mesh(jpar.MeshSpec(sp=2), jax.devices()[:2]))
     assert ppar.all_gather_dim(x, mesh, "fsdp", 0) is x
     assert ppar.reduce_scatter_dim(x, mesh, "tp", 0) is x
     assert ppar.all_reduce_(x, mesh, ("dp", "fsdp")) is x
@@ -361,7 +366,8 @@ def world2(tmp_path_factory):
         _case("moe_dp_drop", "grads", "gpt2", MOE2_DROP, dict(dp=2), 3, opt=OPT_ONE),
         _case("llama_dp", "steps", "llama", LLAMA, dict(dp=2), 4, steps=1, opt=OPT_ONE),
         dict(name="mismatch", kind="mismatch", mesh=dict(dp=2, ep=2)),
-    ] + [dict(name=f"raises_{a}", kind="raises", mesh={a: 2}) for a in UNPORTED] + _full_cases(2)
+    ] + [_full(f"axis_{a}", "gpt2", dict(GPT2, pipeline_microbatches=2), mesh, 6 + i)
+         for i, (a, mesh) in enumerate(SEQ_PIPE_AXES.items())] + _full_cases(2)
     return {c["name"]: c for c in cases}, _spawn(2, cases, tmp_path_factory.mktemp("world2"))
 
 
@@ -530,14 +536,17 @@ def test_sharded_leaves_are_the_rules_blocks(world2, world4):
         assert all(r[name]["params"][i].shape == shape for r in ranks), (name, leaf)
 
 
-@pytest.mark.parametrize("axis", UNPORTED)
-def test_unported_axes_raise_across_ranks(world2, axis):
-    _, ranks = world2
-    for rank in ranks:
-        messages = rank[f"raises_{axis}"]["messages"]
-        assert set(messages) == {"make_train_step", "gpt2.hidden", "llama.hidden"}
-        for where, msg in messages.items():
-            assert msg is not None and f"{axis}=2" in msg, (where, msg)
+@pytest.mark.parametrize("axis", list(SEQ_PIPE_AXES))
+def test_sp_and_pp_axes_run_across_ranks(world2, axis):
+    """GPT-2 under sp=2 (each rank its half of the sequence, attention over
+    the ring) and under pp=2 (each rank one layer, two microbatches): loss,
+    gradients and global norm of one pass and the params after two steps
+    equal JAX's unsharded ones."""
+    cases, ranks = world2
+    got = [r[f"axis_{axis}"] for r in ranks]
+    assert [g["coords"][axis] for g in got] == [0, 1]
+    _check_grads(cases[f"axis_{axis}"], got)
+    _check_steps(cases[f"axis_{axis}"], got)
 
 
 def test_make_mesh_raises_on_a_device_count_mismatch(world2):

@@ -13,12 +13,13 @@ side runs in the test's own process), and pickles this rank's results to
   ``"full"`` (both: ``make_grad_fn`` and ``global_norm`` once, with the
   count of weights its backward gathered again over fsdp, the logits of
   ``forward`` where no batch axis splits the rows, then ``steps``
-  steps), ``"raises"`` (each unported axis at size WORLD must raise in
-  the step and in both models' ``hidden``) or ``"mismatch"`` (a mesh for
-  another number of devices must raise);
-- for the first two, ``family`` (``"gpt2"`` or ``"llama"``), ``cfg`` (config
-  fields; f32 activations), ``tree`` and ``batch`` (numpy) and ``opt``
-  (``default_optimizer`` arguments).
+  steps) or ``"mismatch"`` (a mesh for another number of devices must
+  raise);
+- for the first three, ``family`` (``"gpt2"`` or ``"llama"``), ``cfg``
+  (config fields; f32 activations), ``tree`` and ``batch`` (numpy), ``opt``
+  (``default_optimizer`` arguments) and optionally ``batch_spec`` (the
+  ``PartitionSpec`` entries of the step's batch; ``P(("dp", "fsdp"))`` by
+  default).
 """
 
 import functools
@@ -70,8 +71,7 @@ def run_case(case: dict) -> dict:
         return dict(message=None)
     mesh = make_mesh(MeshSpec(**case["mesh"]), "cpu")
     coords = {a: mesh.coordinate(a) for a in mesh.axis_names}
-    if case["kind"] == "raises":
-        return dict(coords=coords, messages=raises(mesh))
+    batch_spec = P(*case.get("batch_spec", (("dp", "fsdp"),)))
     model, config, convert = FAMILIES[case["family"]]
     cfg = config(**case["cfg"], dtype=torch.float32)
     # bench.py's call sequence, on the port.
@@ -86,7 +86,7 @@ def run_case(case: dict) -> dict:
     out = dict(coords=coords, specs=[tuple(s.spec) for s in spmd.tree_leaves(shardings)])
     if case["kind"] in ("grads", "full"):
         REGATHERED[0] = 0
-        metrics, grads = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=P(("dp", "fsdp")))(
+        metrics, grads = spmd.make_grad_fn(loss_fn, mesh=mesh, batch_spec=batch_spec)(
             state["params"], batch, shardings
         )
         out.update(grad_metrics={k: v.item() for k, v in metrics.items()}, grads=_numpy(grads),
@@ -98,7 +98,7 @@ def run_case(case: dict) -> dict:
             with torch.no_grad():
                 out["logits"] = model.forward(state["params"], batch["tokens"], cfg, mesh).numpy()
     step = spmd.make_train_step(
-        loss_fn, opt, mesh=mesh, batch_spec=P(("dp", "fsdp")), param_shardings=shardings
+        loss_fn, opt, mesh=mesh, batch_spec=batch_spec, param_shardings=shardings
     )
     step, flops = spmd.compile_train_step(step, state, batch)
     assert flops is None
@@ -109,32 +109,6 @@ def run_case(case: dict) -> dict:
     assert state["step"] == case["steps"]
     out.update(metrics=metrics, params=_numpy(spmd.tree_leaves(state["params"])))
     return out
-
-
-def raises(mesh) -> dict:
-    """The message each unported axis raises with, from the step and from
-    both models' ``hidden``; the caller checks each names the axis."""
-    got = {}
-    gcfg = gpt2.GPT2Config.tiny(n_layer=1, d_model=64, n_head=2, vocab_size=64, max_seq=16)
-    lcfg = llama.LlamaConfig.tiny(n_layer=1, d_model=64, n_head=2, n_kv_head=1, vocab_size=64,
-                                  max_seq=16)
-    toks = torch.zeros((1, 4), dtype=torch.long)
-    calls = {
-        "make_train_step": lambda: spmd.make_train_step(
-            gpt2.loss_fn, spmd.default_optimizer(), mesh=mesh),
-        "gpt2.hidden": lambda: gpt2.hidden(
-            gpt2.init_params(torch.Generator(), gcfg, "cpu"), toks, gcfg, mesh),
-        "llama.hidden": lambda: llama.hidden(
-            llama.init_params(torch.Generator(), lcfg, "cpu"), toks, lcfg, mesh),
-    }
-    for name, call in calls.items():
-        try:
-            call()
-        except NotImplementedError as e:
-            got[name] = str(e)
-        else:
-            got[name] = None
-    return got
 
 
 def main(rank: int, world: int, store: str, cases_path: str, out_dir: str) -> None:
