@@ -56,23 +56,37 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    config) takes one batch of 4 prompts twice; the second call must reuse
    the cached engine, and the texts must equal that engine's
    ``generate`` (``{"batch": ...}``).
-9. Train GPT-2-125M at full width through the port's ``make_train_step``
+9. Disaggregated serving (``disagg``), GPT-2-125M and Llama-125M at full
+   width on the paged cache at phase 3's shape: phase 3's 6-request
+   traffic prefilled by a prefill-only engine and decoded by another from
+   the handoffs (the KV over the socket transfer fabric), with the launch
+   counts zeroed just before and read just after (0: the paged path runs
+   no kernel). The streams must equal a unified engine's exactly, with no
+   prefill on the decode engine, no fallback and 6 handoffs in, and each
+   handoff must ship 2 * L * nb_pad * KH * 16 * 64 * 2 bytes. Then one
+   request under a seeded ``kvship.sever`` (seed 7) must fall back to the
+   decode engine's local chunked prefill with the tokens of a unified
+   engine that chunks alike, and one handoff to a dense engine must
+   re-prefill with n_layer flash_fwd launches. The ``llm.kv_export`` and
+   ``llm.kv_pull`` medians and the bytes a handoff are printed beside the
+   card line (``{"disagg": ...}``).
+10. Train GPT-2-125M at full width through the port's ``make_train_step``
    (batch [8, 1024], bf16 activations, f32 masters, ``remat="mlp"``,
    ``loss_chunk=0``): one step's loss and gradient norm through the kernels
    against the plain attention, 3 warm-up and 10 timed steps with the
    launch counts zeroed just before the timed steps and read just after,
    one step at ``loss_chunk=128`` against ``loss_chunk=0``, and one
    profiled step (``train``).
-10. The same for Llama-125M (``train_llama``): ``LlamaConfig.llama_125m()``
+11. The same for Llama-125M (``train_llama``): ``LlamaConfig.llama_125m()``
    with its defaults ``remat="mlp"`` and ``loss_chunk=128`` (checked
    against ``loss_chunk=0``); the kernels run on K/V repeated from 4 KV
    heads, 12 flash_fwd and 12 flash_bwd launches a step.
-11. MoE GPT-2 (``train_moe``): GPT-2-125M's widths with 4 experts in every
-   block (capacity 1.5, aux weight 0.01), trained as in phase 9; "mlp"
+12. MoE GPT-2 (``train_moe``): GPT-2-125M's widths with 4 experts in every
+   block (capacity 1.5, aux weight 0.01), trained as in phase 10; "mlp"
    remat resolves to "dots" under MoE, so each step runs 24 flash_fwd and
    12 flash_bwd launches. It also prints the aux of every step (finite)
    and the share of tokens an expert served in each layer.
-12. The mesh path (``train_mesh``): ``bench.py``'s call sequence on the
+13. The mesh path (``train_mesh``): ``bench.py``'s call sequence on the
    port (``make_mesh``, ``shardings_from_logical``,
    ``make_train_state(param_shardings=)``, ``make_train_step(mesh=,
    batch_spec=, param_shardings=)``, ``compile_train_step``) over NCCL at
@@ -80,8 +94,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    all-reduce through the group; GPT-2-125M under ``MeshSpec(dp=1)`` and
    MoE GPT-2 under ``MeshSpec(ep=1)``, each two steps equal to the
    unsharded step's bit for bit (losses, params, moments); then the dense
-   sharded step timed as in phase 9 (12 + 12 launches a step).
-13. Sharded steps (``train_shard``), the same call sequence over several
+   sharded step timed as in phase 10 (12 + 12 launches a step).
+14. Sharded steps (``train_shard``), the same call sequence over several
    rank processes (this script with ``--mesh-rank``), at full width:
    GPT-2-125M under ``MeshSpec(tp=2)``, Llama-125M under
    ``MeshSpec(fsdp=2, tp=2)`` and MoE GPT-2 under ``MeshSpec(tp=2)`` (global
@@ -105,26 +119,40 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    and read just after (12 + 12, MoE 24 + 12; 0 + 0 on the ring; 24 + 12
    a stage of the pipelined MoE: 6 layers x 2 microbatches, "dots"), and
    prints its peak memory and the size of its state beside the unsharded
-   step's. Ranks that share one card are not speed evidence.
-14. Tensor-parallel serving (``serve_tp``): ``LLMEngine`` with
+   step's. Ranks that share one card are not speed evidence. The last
+   case, GPT-2-125M under ``fsdp=2 x tp=2``, then takes a second step,
+   saves the state (``train/sharded_checkpoint.py``: each rank its own
+   blocks) and restores it onto its own mesh, onto ``dp=2 x tp=2`` and
+   whole onto the host: every saved leaf and every leaf restored onto
+   ``dp=2 x tp=2`` must be bit for bit its block of the whole one. One
+   step each on the live state, the state restored onto the same mesh
+   and the one restored onto the new mesh follow, with the launch counts
+   zeroed just before and read just after: the resumed loss must equal
+   the live one bit for bit on the same mesh and within the training
+   tolerance on the new one. The bytes each rank wrote and the save and
+   restore seconds are printed.
+15. Tensor-parallel serving (``serve_tp``): ``LLMEngine`` with
    ``tensor_parallelism`` > 1, each rank a process (this script with
-   ``--serve-rank``), placed as in phase 13: GPT-2-125M at ``tp=2`` on the
+   ``--serve-rank``), placed as in phase 14: GPT-2-125M at ``tp=2`` on the
    paged and the dense cache, Llama-125M at ``tp=2`` paged and ``tp=4``
    dense, each on phase 3's configuration and traffic, and the spec
-   probe's 1-layer draft arm (phase 15's shape, dense) at ``tp=2`` on
+   probe's 1-layer draft arm (phase 16's shape, dense) at ``tp=2`` on
    streams cut to 64 tokens. A one-rank engine of the same fields and seed
    serves the same traffic in this process first. Every rank's streams,
    counters and first-token logits must equal rank 0's; rank 0's streams
    must equal the one-rank engine's, or first diverge at a near tie within
-   bf16's noise (as phase 15's spec arms against vanilla); rank 0's
+   bf16's noise (as phase 16's spec arms against vanilla); rank 0's
    first-token logits of the 1000-token prompt (spec: of its first
    stream) within twice the family's bf16 tolerance of phase 5 of the
    one-rank engine's; each rank's flash_fwd launches those of the one-rank
    path on that traffic (spec: its target and draft prefills), and its KV
    bytes the one-rank engine's divided by tp. Each rank's telemetry is
    checked as in phase 4. Peak memory, KV size, launches, transport and
-   the ranks' seconds are printed, and are not speed evidence.
-15. Speculative decoding with a GPT-2-125M target, in the reference's own
+   the ranks' seconds are printed, and are not speed evidence. In the
+   ranks of ``gpt2_tp2`` a tp=2 prefill-only engine then hands the same
+   traffic to a tp=2 decode engine: the streams must equal the ranks' own
+   unified ones, with no prefill and no fallback on the decode engine.
+16. Speculative decoding with a GPT-2-125M target, in the reference's own
    spec-decoding probe shape (4 slots, 1024 positions, 3 greedy streams of
    200 tokens after a warm-up request, k=4), on the dense cache (``spec``)
    and the paged one (``spec_paged``). Three arms each: vanilla, a 1-layer
@@ -168,7 +196,9 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from ray_tpu_torch.core import faults
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
+from ray_tpu_torch.experimental import transfer as ptransfer
 from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams, build_llm_processor
 from ray_tpu_torch.llm import batch as llm_batch
 from ray_tpu_torch.models import common, gpt2, llama, paged
@@ -183,7 +213,7 @@ from ray_tpu_torch.parallel import (
     p2p_transport,
     shardings_from_logical,
 )
-from ray_tpu_torch.train import spmd
+from ray_tpu_torch.train import sharded_checkpoint, spmd
 from ray_tpu_torch.util import flightrec, metrics
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a kernel
@@ -993,6 +1023,172 @@ def batch_path() -> dict:
                 bwd_launches=bwd_launches, texts=texts)
 
 
+# Disaggregated serving (disagg): per family, a prefill-only engine A, a
+# decode engine B (chunked prefill on, for the severed pull's fallback), a
+# unified engine C; C2, unified with B's chunking, for the severed request;
+# D, a dense engine for the re-prefill of a handoff.
+DISAGG_FAMILIES = (("gpt2", dict()), ("llama", dict(model_config=LLAMA_125M)))
+DISAGG_CHUNK = 256
+DISAGG_SEVER_SEED = 7
+
+
+def kv_ship_bytes() -> float:
+    return sum(v for n, _t, v in metrics.registry().snapshot()["points"]
+               if n == "raytpu_llm_kv_ship_bytes_total")
+
+
+def handoff_bytes(engine, prompt_len: int) -> int:
+    """2 * L * nb_pad * KH * bs * Dh * itemsize: the stack one handoff of a
+    ``prompt_len``-token prompt ships (nb_pad: its blocks padded to a power
+    of two)."""
+    cfg, bs = engine.model_config, engine._block_size
+    nb = -(-prompt_len // bs)
+    nb_pad = 1 << (nb - 1).bit_length()
+    kh = getattr(cfg, "n_kv_head", cfg.n_head)
+    return 2 * cfg.n_layer * nb_pad * kh * bs * cfg.head_dim * torch.finfo(cfg.dtype).bits // 8
+
+
+def prefill_handoffs(engine, prompts: dict, sampling) -> dict:
+    """Prefill-only requests on ``engine``: request id -> handoff dict."""
+    for rid, p in prompts.items():
+        engine.add_request(rid, p, sampling, prefill_only=True)
+    while engine.has_unfinished():
+        engine.step()
+    done = {r.request_id: r for r in engine.pop_finished()}
+    assert all(r.error is None and r.handoff_out is not None for r in done.values()), done
+    return {rid: done[rid].handoff_out for rid in prompts}
+
+
+def decode_handoffs(engine, handoffs: dict, sampling) -> dict:
+    """Handoff admissions on ``engine``, stepped to the end: request id ->
+    its stream."""
+    for rid, h in handoffs.items():
+        engine.add_handoff_request(rid, h, sampling)
+    steps = 0
+    while engine.has_unfinished():
+        engine.step()
+        steps += 1
+        assert steps < 10_000, "handoff decode does not converge"
+    done = {r.request_id: r for r in engine.pop_finished()}
+    assert all(r.error is None for r in done.values())
+    return {rid: list(done[rid].generated) for rid in handoffs}
+
+
+def disagg_family(name: str, fields: dict) -> dict:
+    """One family's disaggregated serving at full width on the paged cache
+    (the reference engine's default shape): serve's 6-request traffic
+    prefilled on A and decoded on B from the handoffs, with the launch
+    counts zeroed just before and read just after; B's streams equal to
+    C's exactly, with no prefill on B, no fallback and 6 handoffs in; the
+    shipped bytes of each handoff 2 * L * nb_pad * KH * bs * Dh * 2; then
+    one request under a seeded kvship.sever (B's chunked local prefill,
+    C2's tokens) and one handoff to a dense engine (a re-prefill: n_layer
+    flash_fwd launches)."""
+    sampling = SamplingParams(max_tokens=MAX_TOKENS)
+    A, B, C = build_engine(fields), build_engine(dict(fields, prefill_chunk_tokens=DISAGG_CHUNK)), \
+        build_engine(fields)
+    rng = np.random.default_rng(0)
+    ids = token_ids(rng, A)
+    warm = {"warm": ids(40)}  # cuBLAS handles, allocator, the fabric's server
+    decode_handoffs(B, prefill_handoffs(A, warm, SamplingParams(max_tokens=2)), SamplingParams(max_tokens=2))
+    C.generate(list(warm.values()), SamplingParams(max_tokens=2))
+    prompts = traffic(A, rng)
+    want = drive(C, prompts, sampling)["streams"]
+    C.pop_finished()
+    stats_a, stats_b = dict(A.stats), dict(B.stats)
+    flightrec.reset()
+    shipped0 = kv_ship_bytes()
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
+    t0 = time.perf_counter()
+    handoffs = prefill_handoffs(A, prompts, sampling)
+    got = decode_handoffs(B, handoffs, sampling)
+    wall_s = time.perf_counter() - t0
+    launches = (attention.flash_fwd_launches, attention.flash_bwd_launches)  # read just after
+    events = llm_events()
+    shipped = kv_ship_bytes() - shipped0
+    d_a = {k: A.stats[k] - stats_a[k] for k in A.stats}
+    d_b = {k: B.stats[k] - stats_b[k] for k in B.stats}
+    assert got == want, f"disagg {name}: B's streams differ from the unified engine's"
+    assert d_b["prefill_tokens"] == 0 and d_b["kv_fallbacks"] == 0, d_b
+    assert d_b["handoffs_in"] == len(prompts) == d_a["handoffs_out"], (d_a, d_b)
+    assert launches == (0, 0), launches  # the paged path runs no kernel
+    per = {rid: handoff_bytes(A, len(p)) for rid, p in prompts.items()}
+    for rid, h in handoffs.items():
+        shape = h["kv"]["shape"]
+        assert math.prod(shape) * torch.finfo(A.model_config.dtype).bits // 8 == per[rid], (rid, shape)
+    assert shipped == sum(per.values()), (shipped, per)
+
+    def leg_ms(phase):
+        return [1e3 * e["dur_s"] for e in events if e["phase"] == phase]
+
+    exports, pulls = leg_ms("llm.kv_export"), leg_ms("llm.kv_pull")
+    assert len(exports) == len(pulls) == len(prompts), (len(exports), len(pulls))
+    assert all(e["extra"]["ok"] for e in events if e["phase"] == "llm.kv_pull")
+
+    # One request again under a seeded sever: B falls back to local chunked
+    # prefill; C2 (unified, B's chunking) serves it too.
+    sever = {"p1000": prompts["p1000"]}
+    h = prefill_handoffs(A, sever, sampling)
+    stats_b = dict(B.stats)
+    faults.install(faults.parse_spec(DISAGG_SEVER_SEED, "kvship.sever"))
+    try:
+        severed = decode_handoffs(B, h, sampling)
+    finally:
+        faults.clear()
+    d_sever = {k: B.stats[k] - stats_b[k] for k in B.stats}
+    del C
+    torch.cuda.empty_cache()
+    C2 = build_engine(dict(fields, prefill_chunk_tokens=DISAGG_CHUNK))
+    C2.generate(list(warm.values()), SamplingParams(max_tokens=2))
+    chunked = drive(C2, sever, sampling)["streams"]
+    assert severed == chunked, f"disagg {name}: the severed request's tokens differ from C2's"
+    assert d_sever["kv_fallbacks"] == 1 and d_sever["handoffs_in"] == 0, d_sever
+    assert d_sever["prefill_tokens"] == len(sever["p1000"]) and d_sever["prefill_chunks"] >= 2, d_sever
+    del C2
+    torch.cuda.empty_cache()
+
+    # One handoff to a dense engine: it re-prefills, through the kernel.
+    D = build_engine(dict(fields, kv_block_size=0))
+    D.generate(list(warm.values()), SamplingParams(max_tokens=2))
+    h = prefill_handoffs(A, {"p300": prompts["p300"]}, sampling)
+    stats_d = dict(D.stats)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before
+    dense = decode_handoffs(D, h, sampling)
+    dense_launches = (attention.flash_fwd_launches, attention.flash_bwd_launches)  # read just after
+    d_d = {k: D.stats[k] - stats_d[k] for k in D.stats}
+    L = A.model_config.n_layer
+    assert dense_launches == (L, 0), dense_launches
+    assert d_d["prefill_tokens"] == len(prompts["p300"]) and d_d["handoffs_in"] == 0, d_d
+    del A, B, D
+    torch.cuda.empty_cache()
+    return dict(
+        model=name, paged=True, requests=len(prompts), streams_equal_unified=True,
+        decode_engine=dict(prefill_tokens=d_b["prefill_tokens"], kv_fallbacks=d_b["kv_fallbacks"],
+                           handoffs_in=d_b["handoffs_in"]),
+        bytes_per_handoff=per, bytes_shipped=shipped, bytes_p1000=per["p1000"],
+        kv_export_ms=dict(median=median(exports), max=max(exports)),
+        kv_pull_ms=dict(median=median(pulls), max=max(pulls)),
+        pull_gb_s_p1000=per["p1000"] / 1e6 / pulls[list(prompts).index("p1000")],
+        wall_s=wall_s, launches=launches[0], bwd_launches=launches[1],
+        sever=dict(seed=DISAGG_SEVER_SEED, kv_fallbacks=d_sever["kv_fallbacks"],
+                   prefill_chunks=d_sever["prefill_chunks"], tokens_equal_unified_chunked=True,
+                   tokens_equal_unified=severed["p1000"] == want["p1000"]),
+        dense_reprefill=dict(launches=dense_launches[0], prefill_tokens=d_d["prefill_tokens"],
+                             tokens_equal_paged_unified=dense["p300"] == want["p300"]),
+    )
+
+
+def disagg_path(card: str) -> dict:
+    """Both families (see disagg_family); the kernels line's ``disagg``
+    launches are the dense re-prefills' (the handoff path itself launches
+    none)."""
+    t0 = time.perf_counter()
+    fams = {name: disagg_family(name, fields) for name, fields in DISAGG_FAMILIES}
+    launches = sum(f["launches"] + f["dense_reprefill"]["launches"] for f in fams.values())
+    return dict(card=card, families=fams, launches=launches, bwd_launches=0,
+                transport=ptransfer.transfer_stats()["transport"], phase_s=time.perf_counter() - t0)
+
+
 def model_of(cfg):
     return llama if isinstance(cfg, LlamaConfig) else gpt2
 
@@ -1189,8 +1385,12 @@ SHARD_CASES = {
     "gpt2_sp2_tp2": (train_config, dict(sp=2, tp=2), TRAIN_B, SEQ_SPEC),
     "llama_fsdp2_sp2": (llama_train_config, dict(fsdp=2, sp=2), TRAIN_B, SEQ_SPEC),
     "moe_pp2_ep2": (moe_pp_train_config, dict(pp=2, ep=2), TRAIN_B, ROW_SPEC),
+    "gpt2_fsdp2_tp2_ckpt": (train_config, dict(fsdp=2, tp=2), TRAIN_B, ROW_SPEC),
 }
 SEQ_PIPE_CASES = ("gpt2_sp2_tp2", "llama_fsdp2_sp2", "moe_pp2_ep2")
+# The sharded-checkpoint case: saved after its step under its own mesh,
+# restored onto this layout (and onto its own), one more step on each.
+CKPT_CASES = {"gpt2_fsdp2_tp2_ckpt": dict(dp=2, tp=2)}
 
 
 def shard_launches(cfg, spec: dict, rows: int) -> dict:
@@ -1372,9 +1572,10 @@ def shard_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
     cuda = device_type == "cuda"
     backend = "nccl" if cuda and torch.cuda.device_count() >= world else "gloo"
     case = Path(tmp) / f"{name}.pkl"
+    ckpt = dict(path=str(Path(tmp) / f"{name}.ckpt"), target=CKPT_CASES[name]) if name in CKPT_CASES else None
     with open(case, "wb") as f:
         pickle.dump(dict(cfg=cfg, spec=spec, rows=rows, batch_spec=batch_spec,
-                         device_type=device_type, backend=backend), f)
+                         device_type=device_type, backend=backend, ckpt=ckpt), f)
     store = Path(tmp) / f"{name}.store"
     t0 = time.perf_counter()
     procs = [subprocess.Popen([sys.executable, __file__, "--mesh-rank", str(r), str(world),
@@ -1401,6 +1602,14 @@ def shard_case(name: str, device_type: str, tmp: str, cfg=None) -> dict:
         assert abs(got["gnorm"] - want["gnorm"]) / want["gnorm"] <= TRAIN_GNORM_TOL, (name, got, want)
         if cuda:
             assert got["launches"] == per_step, (name, got["launches"], per_step)
+        if ckpt is not None:  # the resumed step: bitwise on the same mesh, within tolerance off it
+            c = got["ckpt"]
+            assert c["same_mesh_loss"] == c["live_loss"], (name, c)
+            assert abs(c["new_mesh_loss"] - c["live_loss"]) <= TRAIN_LOSS_TOL, (name, c)
+            if cuda:
+                assert c["launches"] == {k: 3 * v for k, v in per_step.items()}, (name, c["launches"])
+    if ckpt is not None:
+        assert sum(o["ckpt"]["bytes_written"] for o in outs) == outs[0]["ckpt"]["state_bytes"]
     if cuda:
         torch.cuda.empty_cache()
     return dict(model=type(cfg).__name__, n_experts=getattr(cfg, "n_experts", 0), mesh=spec,
@@ -1436,6 +1645,8 @@ def mesh_rank(rank: int, world: int, store: str, case_path: str) -> None:
         out = loss_and_norm(cfg, state["params"], batch, shardings, mesh, case["batch_spec"])
         out.update(shard_step(step, state, batch, dev))
         out["coords"] = {a: mesh.coordinate(a) for a in mesh.axis_names if mesh.size(a) > 1}
+        if case["ckpt"] is not None:
+            out["ckpt"] = ckpt_rank(cfg, case, opt, step, state, batch, dev)
         # gloo takes CUDA tensors for every collective the port runs and
         # stages them through host memory; NCCL keeps them on the cards.
         # Point to point (the sp ring, the pp stages) gloo takes on the
@@ -1445,6 +1656,61 @@ def mesh_rank(rank: int, world: int, store: str, case_path: str) -> None:
         print(json.dumps(out), flush=True)
     finally:
         dist.destroy_process_group()
+
+
+def ckpt_rank(cfg, case, opt, step, state, batch, dev) -> dict:
+    """The checkpoint case on this rank, after its first step (at the
+    schedule's zero learning rate): one more step, which moves the params,
+    then save the state, restore it onto the case's mesh and onto the
+    target mesh, and
+    whole onto the host; every saved leaf and every leaf restored onto the
+    target is bitwise its block of the whole one. Then one step each on
+    the live state (the uninterrupted run), the state restored onto the
+    same mesh and the one restored onto the target, with the launch counts
+    zeroed just before and read just after: their losses, the bytes this
+    rank wrote and the save and restore seconds."""
+    path, target = case["ckpt"]["path"], MeshSpec(**case["ckpt"]["target"])
+    step(state, batch)
+    t0 = time.perf_counter()
+    written = sharded_checkpoint.save_sharded(state, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    same = sharded_checkpoint.restore_sharded(path, sharded_checkpoint.restore_template(state))
+    restore_same_s = time.perf_counter() - t0
+    tmesh = make_mesh(target, case["device_type"])
+    tshard = shardings_from_logical(gpt2.param_logical_specs(cfg), DEFAULT_RULES, tmesh)
+    t0 = time.perf_counter()
+    new = sharded_checkpoint.restore_sharded(path, sharded_checkpoint.restore_template(state, tshard))
+    restore_new_s = time.perf_counter() - t0
+    none = spmd._tree_map(lambda _: None, state["params"])
+    whole = sharded_checkpoint.restore_sharded(
+        path, sharded_checkpoint.restore_template(state, none, device="cpu"))
+    leaves = 0
+    for st in (state, new):
+        flat = sharded_checkpoint._flatten(sharded_checkpoint._tree_of(st), spmd.state_shardings(st))
+        for (key, leaf, sh), (_, w, _) in zip(flat, sharded_checkpoint._flatten(
+                sharded_checkpoint._tree_of(whole), None)):
+            if isinstance(leaf, torch.Tensor):
+                assert torch.equal(leaf.detach().cpu(), sh.shard(w)), f"ckpt leaf {key} differs"
+                leaves += 1
+            else:
+                assert leaf == w, key
+    state_bytes = sum(t.numel() * t.element_size() for _, t, _ in sharded_checkpoint._flatten(
+        sharded_checkpoint._tree_of(whole), None) if isinstance(t, torch.Tensor))
+    del whole
+    new_step = spmd.make_train_step(functools.partial(gpt2.loss_fn, cfg=cfg, mesh=tmesh), opt,
+                                    mesh=tmesh, batch_spec=P(*case["batch_spec"]),
+                                    param_shardings=tshard)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the steps
+    live_loss = step(state, batch)[1]["loss"].item()
+    same_loss = step(same, batch)[1]["loss"].item()
+    new_loss = new_step(new, batch)[1]["loss"].item()
+    launches = {"flash_fwd": attention.flash_fwd_launches,  # read just after
+                "flash_bwd": attention.flash_bwd_launches}
+    return dict(target=case["ckpt"]["target"], bytes_written=written, state_bytes=state_bytes,
+                save_s=save_s, restore_same_s=restore_same_s, restore_new_s=restore_new_s,
+                leaves_bitwise=leaves, live_loss=live_loss, same_mesh_loss=same_loss,
+                new_mesh_loss=new_loss, launches=launches)
 
 
 def train_shard(dev, tmp: str) -> dict:
@@ -1462,8 +1728,10 @@ def train_shard(dev, tmp: str) -> dict:
         return {k: sum(r["launches"][k] for n in names for r in cases[n]["ranks"])
                 for k in KERNELS}
 
+    ckpt_launches = {k: sum(r["ckpt"]["launches"][k] for n in CKPT_CASES for r in cases[n]["ranks"])
+                     for k in KERNELS}
     return dict(cases=cases, launches=summed([n for n in cases if n not in SEQ_PIPE_CASES]),
-                launches_sp_pp=summed(SEQ_PIPE_CASES))
+                launches_sp_pp=summed(SEQ_PIPE_CASES), launches_ckpt=ckpt_launches)
 
 
 # Speculative decoding: the arms of each cache, in order. The vanilla arm
@@ -1651,6 +1919,11 @@ TP_CASES = {
 }
 
 
+# The serve_tp case whose ranks also hand its traffic from a tp=2
+# prefill-only engine to a tp=2 decode engine (disaggregated serving).
+TP_HANDOFF_CASES = ("gpt2_tp2",)
+
+
 def tp_reference(name: str) -> tuple[dict, dict]:
     """One serve_tp case's one-rank engine on card 0, from the same seed:
     the warm-up, then the case's traffic with the launch counts zeroed just
@@ -1680,7 +1953,8 @@ def tp_reference(name: str) -> tuple[dict, dict]:
                kv_bytes=kv_bytes(engine), family=type(cfg).__name__, paged=engine.paged,
                n_layer=cfg.n_layer)
     case = dict(name=name, fields={**{"seed": 0, **fields}, "tensor_parallelism": tp}, warm=warm,
-                warm_tokens=warm_tokens, prompts=prompts, tokens=tokens, first_of=first_of)
+                warm_tokens=warm_tokens, prompts=prompts, tokens=tokens, first_of=first_of,
+                handoff=name in TP_HANDOFF_CASES)
     del engine
     torch.cuda.empty_cache()
     return case, ref
@@ -1720,7 +1994,27 @@ def tp_rank_case(case: dict, rank: int, out_dir: str) -> dict:
     )
     del engine, kv
     torch.cuda.empty_cache()
+    if case["handoff"]:
+        out["handoff"] = tp_handoff(case)
     return out
+
+
+def tp_handoff(case: dict) -> dict:
+    """The case's traffic handed from a tp-rank prefill-only engine to a
+    tp-rank decode engine (fresh ones, so the prefix pool is the unified
+    run's), with the launch counts zeroed just before and read just
+    after: this rank's streams and its decode engine's counters."""
+    sampling = SamplingParams(max_tokens=case["tokens"])
+    A, B = LLMEngine(LLMConfig(**case["fields"])), LLMEngine(LLMConfig(**case["fields"]))
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before
+    t0 = time.perf_counter()
+    streams = decode_handoffs(B, prefill_handoffs(A, case["prompts"], sampling), sampling)
+    seconds = time.perf_counter() - t0
+    launches = attention.flash_fwd_launches + attention.flash_bwd_launches  # read just after
+    stats = {k: B.stats[k] for k in ("prefill_tokens", "kv_fallbacks", "handoffs_in")}
+    del A, B
+    torch.cuda.empty_cache()
+    return dict(streams=streams, stats=stats, launches=launches, seconds=seconds)
 
 
 def serve_rank(rank: int, world: int, store: str, cases_path: str, out_dir: str) -> None:
@@ -1807,10 +2101,21 @@ def serve_tp(tmp: str, stream_bound: float, logits_tol: dict) -> dict:
             assert r["telemetry_checks_hold"], (name, r["rank"])
         if "spec_decode_tokens" in fields:
             assert r0["stats"]["spec_steps"] > 0, r0["stats"]
+        handoff = None
+        if cases[name]["handoff"]:  # tp=2 prefill -> tp=2 decode: the tp=2 unified streams
+            for r in rs:
+                h = r["handoff"]
+                assert h["streams"] == r["streams"], f"serve_tp {name}: rank {r['rank']}'s handoff streams"
+                assert h["stats"] == dict(prefill_tokens=0, kv_fallbacks=0,
+                                          handoffs_in=len(cases[name]["prompts"])), h["stats"]
+                assert h["launches"] == 0, h["launches"]  # paged: no kernel
+            handoff = dict(streams_equal_tp_unified=True, decode_stats=r0["handoff"]["stats"],
+                           launches=0, ranks_s=[r["handoff"]["seconds"] for r in rs])
         shared = r0["transport"]["backend"] == "gloo" and torch.cuda.device_count() < tp
         out[name] = dict(
             model=ref["family"], tp=tp, paged=ref["paged"], spec="spec_decode_tokens" in fields,
             first_token_logits=dict(request=cases[name]["first_of"], max_abs_diff=diff, bound=bound),
+            handoff=handoff,
             streams_equal_one_rank=not divergences, divergences=divergences,
             launches_per_rank=ref["launches"], kv_gb_one_rank=ref["kv_bytes"] / 1e9,
             ranks_identical=True, stats=r0["stats"],
@@ -1903,6 +2208,11 @@ def main() -> int:
     print(json.dumps({"batch": batch}), flush=True)
     torch.cuda.empty_cache()
 
+    disagg = disagg_path(card)
+    serve_launches["disagg"] = (disagg["launches"], disagg["bwd_launches"])
+    print(json.dumps({"disagg": disagg}), flush=True)
+    torch.cuda.empty_cache()
+
     train = train_path(dev, train_config())
     print(json.dumps({"train": train}), flush=True)
     torch.cuda.empty_cache()
@@ -1952,6 +2262,7 @@ def main() -> int:
                         "train_mesh": mesh_run["launches"]["flash_fwd"],
                         "train_shard": shard_run["launches"]["flash_fwd"],
                         "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_fwd"],
+                        "train_shard_ckpt": shard_run["launches_ckpt"]["flash_fwd"],
                         **{k: f for k, (f, _) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
@@ -1963,6 +2274,7 @@ def main() -> int:
                         "train_mesh": mesh_run["launches"]["flash_bwd"],
                         "train_shard": shard_run["launches"]["flash_bwd"],
                         "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_bwd"],
+                        "train_shard_ckpt": shard_run["launches_ckpt"]["flash_bwd"],
                         **{k: b for k, (_, b) in spec_launches.items()}},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)

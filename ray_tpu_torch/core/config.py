@@ -19,6 +19,13 @@ environment variables with the same parsing, into one mutable
   switch. Off, an engine builds no draft model and every step is the
   vanilla one, whatever ``LLMConfig.spec_decode_tokens`` says; greedy
   outputs are the same either way.
+- ``faults`` (``RAY_TPU_FAULTS``): the seeded fault-injection spec,
+  ``"<seed>:<rule>[;<rule>...]"``, parsed at import by
+  :mod:`ray_tpu_torch.core.faults` into the process-wide injector; empty
+  (the default) is chaos off. Spawned processes inherit the variable.
+- ``xfer_armed_cap`` (``RAY_TPU_XFER_ARMED_CAP``): how many armed entries
+  the transfer fabric (:mod:`ray_tpu_torch.experimental.transfer`) keeps
+  awaiting a pull before it evicts the oldest past its TTL.
 """
 
 from __future__ import annotations
@@ -44,6 +51,8 @@ class Config:
     flightrec_ring_size: int = 4096
     flightrec_dump_dir: str = ""
     spec_decode: bool = True
+    faults: str = ""
+    xfer_armed_cap: int = 16
 
 
 def load_config() -> Config:

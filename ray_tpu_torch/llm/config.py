@@ -88,17 +88,13 @@ class LLMConfig:
 def check_tensor_parallelism(cfg, tp: int) -> None:
     """Raise ``ValueError`` naming the field unless ``tp`` can serve
     ``cfg``: the vocabulary and the MLP's hidden width each divide over
-    ``tp`` (the reference's placement refuses them otherwise), and every
-    rank holds at least one query head. The heads need not divide: ranks
-    take contiguous blocks as even as they go
-    (:func:`~ray_tpu_torch.models.convert.tp_shard`), as the reference
-    serves such a degree (``tests/test_torch_llm_tp.py`` holds both)."""
+    ``tp`` (the reference's placement refuses them otherwise). The heads
+    need not divide: ranks take contiguous blocks as even as they go
+    (:func:`~ray_tpu_torch.models.convert.tp_shard`), and past the head
+    count a rank holds none, as the reference serves such degrees
+    (``tests/test_torch_llm_tp.py`` holds them)."""
     if tp < 1:
         raise ValueError(f"tensor_parallelism must be >= 1, got {tp}")
-    if cfg.n_head < tp:
-        raise ValueError(
-            f"tensor_parallelism={tp} is more than n_head={cfg.n_head}: a rank would hold no head"
-        )
     for field in ("vocab_size", "d_ff"):
         if getattr(cfg, field) % tp:
             raise ValueError(

@@ -30,6 +30,16 @@ families).
   ``k`` proposals and the target's one verify pass
   (:class:`~ray_tpu_torch.llm.spec_decode.SpecDecoder`); any other step is
   the vanilla one, with the same greedy tokens.
+- **Disaggregated prefill→decode** (the paged cache on the prefill side):
+  ``add_request(..., prefill_only=True)`` finishes a request at its first
+  sampled token with its prompt KV armed on the transfer fabric, carried
+  out as the finished request's ``handoff_out``;
+  ``add_handoff_request(rid, handoff)`` on another engine pulls that KV
+  into its own pool at admission and joins the request to the decode batch
+  with no prefill (:mod:`ray_tpu_torch.llm.disagg`). A failed pull falls
+  back to local (chunked) prefill, counted in ``kv_fallbacks``; a dense
+  decode engine re-prefills the prompt. Either way the greedy tokens are
+  the same.
 
 - **Telemetry**, recorded where the reference records it: the serving
   series (TTFT and inter-token-latency histograms, request, prompt-token,
@@ -37,7 +47,8 @@ families).
   prefix-hit-rate gauges) in the process registry
   (:mod:`ray_tpu_torch.util.metrics`), and the flight-recorder phases
   ``llm.prefill``, ``llm.prefill_chunk``, ``llm.first_token`` and
-  ``llm.decode_step`` in the ``llm`` ring
+  ``llm.decode_step`` (and a handoff's ``llm.kv_export`` and
+  ``llm.kv_pull``) in the ``llm`` ring
   (:mod:`ray_tpu_torch.util.flightrec`). Every timestamp is a host clock
   read where the host already is: a prefill phase's duration is the
   host's dispatch time, and TTFT and ITL stamps follow the readback that
@@ -73,10 +84,8 @@ With ``tp > 1`` and no started process group, or one of another size, the
 engine raises; it never serves as one rank. The draft model of
 speculative decoding is not split, as in the reference: every rank runs
 all of it. A front end that takes requests on one rank and drives the
-others belongs to the serve layer and is not here.
-
-Not ported yet (it raises ``NotImplementedError``): the disaggregated
-prefill/decode handoff.
+others belongs to the serve layer and is not here. A handoff's KV crosses
+between engines of any two degrees (see :mod:`ray_tpu_torch.llm.disagg`).
 """
 
 from __future__ import annotations
@@ -228,6 +237,13 @@ class _Request:
     # Admission failure surfaced through pop_finished (a reservation no
     # pool state can satisfy fails the request, not the engine loop).
     error: Optional[str] = None
+    # Disaggregated serving: prefill_only requests finish at their first
+    # sampled token and carry the exported KV descriptor out through
+    # ``handoff_out``; handoff-admitted requests carry the inbound
+    # descriptor in ``handoff`` until admission pulls (or falls back).
+    prefill_only: bool = False
+    handoff: Optional[dict] = None
+    handoff_out: Optional[dict] = None
     # Speculative decoding: the draft model prefilled this request's
     # prompt, so the slot may join spec steps.
     spec_ready: bool = False
@@ -331,7 +347,13 @@ class LLMEngine:
             "spec_steps": 0,
             "spec_drafted": 0,
             "spec_accepted": 0,
+            # Disaggregated serving (llm/disagg.py):
+            "handoffs_out": 0,  # prefill-only requests exported
+            "handoffs_in": 0,  # handoff admissions that pulled KV
+            "kv_fallbacks": 0,  # pulls that failed -> local prefill
         }
+        # Armed KV exports (uuid, monotonic) not yet past EXPORT_TTL_S.
+        self._kv_exports: list = []
         # Host-side slot state (numpy: mutated per step)
         self.positions = np.zeros(B, np.int32)  # next write position
         self.last_tokens = np.zeros(B, np.int32)
@@ -435,10 +457,14 @@ class LLMEngine:
         sampling: SamplingParams | None = None,
         prefill_only: bool = False,
     ) -> None:
-        """Admit a request (prompt text or token ids)."""
-        if prefill_only:
-            raise NotImplementedError(
-                "prefill_only requests (disaggregated serving) are not ported yet"
+        """Admit a request (prompt text or token ids). ``prefill_only``
+        (disaggregated serving's prefill leg; paged cache only) finishes
+        the request at its first sampled token with the prompt KV exported
+        as ``handoff_out`` instead of joining the decode batch."""
+        if prefill_only and not self.paged:
+            raise ValueError(
+                "prefill_only requests need the paged KV cache "
+                "(kv_block_size > 0): handoffs ship pool blocks"
             )
         sampling = sampling or SamplingParams()
         ids = self.tokenizer.encode(prompt) if isinstance(prompt, str) else list(prompt)
@@ -452,14 +478,41 @@ class LLMEngine:
             max_tokens=sampling.max_tokens,
             temperature=sampling.temperature,
             stop_token=stop,
+            prefill_only=prefill_only,
             t_admit=_time.perf_counter(),
         )
         if _metrics.metrics_enabled():
             _REQUESTS.inc(1.0)
             _PROMPT_TOKENS.inc(float(len(ids)))
 
-    def add_handoff_request(self, request_id, handoff, sampling=None) -> None:
-        raise NotImplementedError("disaggregated KV handoffs are not ported yet")
+    def add_handoff_request(
+        self,
+        request_id: str,
+        handoff: dict,
+        sampling: SamplingParams | None = None,
+    ) -> None:
+        """Admit a disaggregated request from a prefill engine's handoff:
+        the prompt KV arrives over the transfer fabric at admission and the
+        request joins the decode batch with its first token already
+        sampled; this engine never prefills the prompt, unless the pull
+        fails and admission falls back to local (chunked, where
+        configured) prefill. A dense engine cannot land shipped blocks and
+        re-prefills. Counts neither requests nor prompt tokens: the prefill
+        engine did."""
+        sampling = sampling or SamplingParams()
+        stop = sampling.stop_token if sampling.stop_token is not None else self.tokenizer.eos_id
+        req = _Request(
+            request_id=request_id,
+            prompt=list(handoff.get("prompt") or []),
+            max_tokens=sampling.max_tokens,
+            temperature=sampling.temperature,
+            stop_token=stop,
+            handoff=dict(handoff),
+            t_admit=_time.perf_counter(),
+        )
+        if not self.paged:
+            req.handoff = None  # degrade to a plain re-prefill admission
+        self.requests[request_id] = req
 
     # -- prefix pool ---------------------------------------------------------
     def _aligned_prefix_len(self, prompt_len: int) -> int:
@@ -567,6 +620,17 @@ class LLMEngine:
                 slot = self.slot_free.index(True)
             except ValueError:
                 return admit_finished
+            if req.handoff is not None:
+                verdict = self._admit_handoff(req, slot)
+                if verdict == "wait":
+                    return admit_finished
+                if verdict == "done":
+                    if req.finished:
+                        admit_finished.append(req)
+                    continue
+                # "fallback": the pull failed and the handoff is cleared;
+                # the local admission below (chunked prefill included)
+                # takes over, with the same greedy tokens.
             if self.paged:
                 logits = self._admit_paged(req, slot)
             else:
@@ -587,6 +651,12 @@ class LLMEngine:
             req.slot = slot
             self.slot_free[slot] = False
             self._slot_req[slot] = req
+            if req.prefill_only:
+                # Disaggregated prefill leg: export the prompt KV and
+                # finish here; the decode engine takes it from the handoff.
+                self._finish_prefill_only(req, tok)
+                admit_finished.append(req)
+                continue
             self._first_token(req, tok)
             self.positions[slot] = T
             self.last_tokens[slot] = tok
@@ -633,6 +703,103 @@ class LLMEngine:
                 rid=req.request_id, **extra,
             )
 
+    def _admit_handoff(self, req: _Request, slot: int) -> str:
+        """Admit a disaggregated handoff: reserve blocks, pull the shipped
+        KV into them, join the decode batch with the first token already
+        sampled. Returns "done" (admitted, or finished without a slot),
+        "wait" (no blocks free: the FIFO wave stops), or "fallback" (the
+        pull failed: handoff cleared, the caller runs local admission)."""
+        from ray_tpu_torch.llm import disagg
+
+        h = req.handoff
+        if h.get("finished"):
+            # Stop token / max_tokens hit at prefill: the shipped first
+            # token is the whole response; no KV, no slot.
+            req.handoff = None
+            req.generated.append(int(h["first_token"]))
+            self.stats["tokens_generated"] += 1
+            req.t_last_token = _time.perf_counter()
+            req.finished = True
+            return "done"
+        if not h.get("kv") or int(h.get("block_size") or 0) != self._block_size:
+            # Malformed or foreign block geometry: local prefill.
+            req.handoff = None
+            self.stats["kv_fallbacks"] += 1
+            return "fallback"
+        T = len(req.prompt)
+        bs = self._block_size
+        total = min(T + req.max_tokens, self.config.max_seq)
+        nb_total = -(-total // bs)
+        nb_kv = int(h["nblocks"])
+        if nb_total > self.block_mgr.num_blocks - 1:
+            req.error = (
+                f"request {req.request_id} needs {nb_total} KV blocks but "
+                f"the pool only has {self.block_mgr.num_blocks - 1}; raise "
+                f"num_kv_blocks or lower max_tokens"
+            )
+            req.finished = True
+            return "done"
+        if not self.block_mgr.can_alloc(nb_total):
+            self._evict_prefixes_until(nb_total)
+            if not self.block_mgr.can_alloc(nb_total):
+                return "wait"
+        table = self.block_mgr.alloc(nb_total)
+        try:
+            kv = disagg.pull_local_kv(self, h, req.request_id)
+            pk = self.pool["k"]
+            ok = (
+                kv.shape[0] == 2
+                and kv.shape[1] == pk.shape[0]
+                and kv.shape[2] >= nb_kv
+                and kv.shape[3:] == pk.shape[2:]
+                and kv.dtype == pk.dtype
+            )
+        except Exception:  # noqa: BLE001 - any pull failure (sever, dead peer) takes the counted fallback
+            ok = False
+        # Under tensor parallelism every rank takes the same verdict, or
+        # the ranks' collectives would part ways.
+        if not disagg.all_ranks_ok(self, ok):
+            self.block_mgr.decref(table)
+            req.handoff = None
+            self.stats["kv_fallbacks"] += 1
+            return "fallback"
+        disagg.scatter_into_pool(self, kv, table[:nb_kv])
+        req.blocks = table
+        row = np.zeros(self._table_width, np.int32)
+        row[: len(table)] = table
+        self.block_tables[slot] = row
+        req.slot = slot
+        self.slot_free[slot] = False
+        self._slot_req[slot] = req
+        tok = int(h["first_token"])
+        req.handoff = None
+        req.generated.append(tok)
+        self.stats["tokens_generated"] += 1
+        self.stats["handoffs_in"] += 1
+        # No TTFT here: the prefill engine produced the first token and
+        # observed its TTFT; this clock anchors ITL only.
+        req.t_last_token = _time.perf_counter()
+        self.positions[slot] = T
+        self.last_tokens[slot] = tok
+        if self._spec is not None:
+            req.spec_ready = self._spec.prefill_draft(req)
+        self._maybe_finish(req)
+        return "done"
+
+    def _finish_prefill_only(self, req: _Request, tok: int) -> None:
+        """Finish a prefill-only request at its first sampled token: record
+        the token and its TTFT (the prefill engine produced it), export the
+        prompt KV while the blocks are still held (the gather copies), then
+        release the slot."""
+        from ray_tpu_torch.llm import disagg
+
+        self._first_token(req, tok)
+        done = req.max_tokens <= 1 or tok == req.stop_token
+        req.handoff_out = disagg.export_kv(self, req, tok, finished=done)
+        self.stats["handoffs_out"] += 1
+        req.finished = True
+        self._release_slot(req)
+
     def _admit_paged(self, req: _Request, slot: int):
         """Reserve blocks, point the slot's table at them (sharing a pooled
         prefix's blocks), prefill the suffix. Returns the last-logits, or
@@ -645,7 +812,10 @@ class LLMEngine:
         pool mid-decode."""
         T = len(req.prompt)
         bs = self._block_size
-        total = min(T + req.max_tokens, self.config.max_seq)
+        # Prefill-only requests (disagg) never decode here: reserve for the
+        # prompt and the one sampled token, not the decode budget.
+        mt = 1 if req.prefill_only else req.max_tokens
+        total = min(T + mt, self.config.max_seq)
         entry = self._find_prefix(req.prompt)
         P = 0
         if entry is not None:
@@ -850,6 +1020,10 @@ class LLMEngine:
         req.prefilling = False
         tok = self._sample(self._d2h(logits), req)
         self._insert_prefix(req.prompt, req.slot, blocks=req.blocks if self.paged else None)
+        if req.prefill_only:
+            # Disaggregated prefill leg, chunked variant: export + finish.
+            self._finish_prefill_only(req, tok)
+            return [req]
         self._first_token(req, tok)
         self.positions[req.slot] = T
         self.last_tokens[req.slot] = tok

@@ -330,7 +330,11 @@ def _own_heads(t: torch.Tensor, cfg: GPT2Config, mesh: Mesh) -> torch.Tensor:
 def head_block(n_head: int, tp: int, rank: int) -> tuple[int, int]:
     """The heads ``[lo, hi)`` of rank ``rank`` of ``tp``: contiguous blocks
     as even as they go (``lo = rank * n_head // tp``), ``n_head / tp``
-    each where ``tp`` divides ``n_head``."""
+    each where ``tp`` divides ``n_head``. Where ``tp`` exceeds the head
+    count, rank ``r`` holds head ``r`` and the ranks past the head count
+    hold none (an empty block)."""
+    if tp > n_head:
+        return min(rank, n_head), min(rank + 1, n_head)
     return rank * n_head // tp, (rank + 1) * n_head // tp
 
 

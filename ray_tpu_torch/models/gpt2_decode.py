@@ -76,10 +76,10 @@ def _qkv(x, p, cfg):
     B, T, _ = x.shape
     h = _layer_norm(x, p["ln1_scale"], p["ln1_bias"])
     qkv = h @ p["qkv_w"].to(cfg.dtype) + p["qkv_b"].to(cfg.dtype)
-    q, k, v = qkv.split(qkv.shape[-1] // 3, dim=-1)  # this rank's heads' columns
+    q, k, v = qkv.unflatten(-1, (3, -1)).unbind(-2)  # this rank's heads' columns
 
-    def heads(t):
-        return t.reshape(B, T, -1, cfg.head_dim).transpose(1, 2)
+    def heads(t):  # a rank past the head count has none
+        return t.reshape(B, T, t.shape[-1] // cfg.head_dim, cfg.head_dim).transpose(1, 2)
 
     return heads(q), heads(k), heads(v)
 

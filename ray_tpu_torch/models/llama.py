@@ -249,7 +249,8 @@ def _qkv_rope(x, p, cfg: LlamaConfig, cos, sin, mesh: Mesh = local_mesh()):
     h = grad_all_reduce(_rms_norm(x, p["attn_norm"], cfg.rms_eps), mesh, "tp")
 
     def heads(w):
-        return (h @ p[w].to(cfg.dtype)).reshape(B, T, -1, Dh).transpose(1, 2)
+        cols = p[w].shape[-1]  # a rank past the head count has none
+        return (h @ p[w].to(cfg.dtype)).reshape(B, T, cols // Dh, Dh).transpose(1, 2)
 
     return (
         _apply_rope(heads("wq"), cos, sin),
@@ -279,7 +280,10 @@ def kv_heads(cfg: LlamaConfig, tp: int, rank: int) -> list[int]:
 
 def kv_columns(t: torch.Tensor, heads: list[int], head_dim: int) -> torch.Tensor:
     """The columns of ``t [..., n_kv_head * head_dim]`` of ``heads`` in
-    order: a view where they are one contiguous run."""
+    order: a view where they are one contiguous run (no columns for no
+    heads)."""
+    if not heads:
+        return t[..., :0]
     if heads == list(range(heads[0], heads[-1] + 1)):
         return t[..., heads[0] * head_dim:(heads[-1] + 1) * head_dim]
     return torch.cat([t[..., h * head_dim:(h + 1) * head_dim] for h in heads], dim=-1)

@@ -124,7 +124,7 @@ def prefill(
     for i in range(cfg.n_layer):
         p = layer_params(params, i)
         q, k, v = _qkv_rope(x, p, cfg, cos, sin)
-        group = q.shape[1] // k.shape[1]
+        group = q.shape[1] // max(k.shape[1], 1)  # no KV heads: no query heads
         attn = causal_attention(
             q, expand_kv(k, group), expand_kv(v, group), impl=cfg.attn_impl
         )
@@ -167,11 +167,12 @@ def prefill_continue(
         q, k, v = _qkv_rope(x, p, cfg, cos, sin)
         ck[:, :, start : start + T] = k
         cv[:, :, start : start + T] = v
-        qg = q.reshape(B, KH, -1, T, Dh)  # [B, KH, group, T, Dh]
+        H = q.shape[1]
+        qg = q.reshape(B, KH, H // max(KH, 1), T, Dh)  # [B, KH, group, T, Dh]
         s = torch.einsum("bkgtd,bksd->bkgts", qg, ck).float() * scale
         s = torch.where(mask, s, -1e30)
         pattn = torch.softmax(s, dim=-1).to(cv.dtype)
-        attn = torch.einsum("bkgts,bksd->bkgtd", pattn, cv).reshape(B, -1, T, Dh)
+        attn = torch.einsum("bkgts,bksd->bkgtd", pattn, cv).reshape(B, H, T, Dh)
         x = _attn_out(x, attn, p, cfg, mesh)
     return cache, _last_logits(params, x, lengths, cfg, mesh)
 
@@ -207,10 +208,11 @@ def decode_step(
         q, k, v = _qkv_rope(x, p, cfg, cos, sin)  # [B, {H,KH}, 1, Dh]
         ck[rows, kv_heads, pos] = k[:, :, 0, :]
         cv[rows, kv_heads, pos] = v[:, :, 0, :]
-        qg = q[:, :, 0, :].reshape(B, KH, -1, Dh)  # [B, KH, group, Dh]
+        H = q.shape[1]
+        qg = q[:, :, 0, :].reshape(B, KH, H // max(KH, 1), Dh)  # [B, KH, group, Dh]
         s = torch.einsum("bkgd,bksd->bkgs", qg, ck).float() * scale
         s = torch.where(mask[:, None, None, :], s, -1e30)
         pattn = torch.softmax(s, dim=-1).to(cv.dtype)
-        attn = torch.einsum("bkgs,bksd->bkgd", pattn, cv).reshape(B, -1, 1, Dh)
+        attn = torch.einsum("bkgs,bksd->bkgd", pattn, cv).reshape(B, H, 1, Dh)
         x = _attn_out(x, attn, p, cfg, mesh)
     return cache, _logits(params, x[:, 0], cfg, mesh)

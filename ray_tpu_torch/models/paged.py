@@ -162,7 +162,7 @@ def paged_prefill(
             f"a table of {W} blocks of {block_size}"
         )
     embed, qkv, finish, final, H, KH, Dh = hooks or _family(cfg, S, tokens.device)
-    group = H // KH
+    group = H // max(KH, 1)  # a rank past the head count has no heads
     dev = tokens.device
 
     pos = start + torch.arange(T, device=dev)  # [T]
@@ -224,7 +224,7 @@ def paged_verify(
             f"a table of {W} blocks of {block_size}"
         )
     embed, qkv, finish, final, H, KH, Dh = hooks or _family(cfg, S, tokens.device)
-    group = H // KH
+    group = H // max(KH, 1)  # a rank past the head count has no heads
     dev = tokens.device
 
     # Host to device without a stream sync (the caller pins a CUDA run's copy).
@@ -273,7 +273,7 @@ def paged_decode(
     W = tables.shape[1]
     S = W * block_size
     embed, qkv, finish, final, H, KH, Dh = hooks or _family(cfg, S, last_tokens.device)
-    group = H // KH
+    group = H // max(KH, 1)  # a rank past the head count has no heads
     dev = last_tokens.device
     positions = positions.long()
 

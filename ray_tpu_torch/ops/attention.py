@@ -188,8 +188,12 @@ def _check_kernel_inputs(q, **others) -> None:
 
 def _flash_fwd_cuda(q, k, v, scale):
     global flash_fwd_launches
-    _check_kernel_inputs(q, k=k, v=v)
     B, H, S, D = q.shape
+    if H == 0:
+        # A tensor-parallel rank past the head count: the grid is empty, so
+        # nothing launches and nothing is counted.
+        return q.new_empty((B, S, 0, D)).transpose(1, 2), q.new_empty((B, 0, S, 1), dtype=torch.float32)
+    _check_kernel_inputs(q, k=k, v=v)
     # O is laid out [B, S, H, D] and returned as its [B, H, S, D] view, so
     # the caller's merge of the heads back into d_model is a free reshape.
     o = torch.empty((B, S, H, D), dtype=q.dtype, device=q.device).transpose(1, 2)
@@ -209,6 +213,8 @@ def _flash_fwd_cuda(q, k, v, scale):
 
 def _flash_bwd_cuda(q, k, v, o, lse, do, scale):
     global flash_bwd_launches
+    if q.shape[1] == 0:  # no heads: an empty grid, as in the forward
+        return tuple(torch.zeros_like(t) for t in (q, k, v))
     if not _kernel_layout_ok(do):
         # Autograd may hand over an expanded or transposed gradient (the
         # gradient of a sum has zero strides). The training path's dO, laid

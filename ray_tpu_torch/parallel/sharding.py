@@ -95,24 +95,34 @@ class NamedSharding:
             a for entry in self.spec for a in _entry_axes(entry) if self.mesh.size(a) > 1
         )
 
-    def shard(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's block of the whole array ``x`` (a view): each split
-        dim is cut into equal blocks, one per index along its axes, the
-        first axis major, as ``jax.device_put`` lays out a NamedSharding."""
-        for dim, entry in enumerate(self.spec):
+    def box(self, global_shape: Sequence[int]) -> tuple[tuple[int, int], ...]:
+        """This rank's index box of an array of ``global_shape``: one
+        ``(start, stop)`` per dim. Each split dim is cut into equal blocks,
+        one per index along its axes, the first axis major, as
+        ``jax.device_put`` lays out a NamedSharding; every other dim is
+        whole. Raises ``ValueError`` where a dim does not split evenly."""
+        shape = tuple(global_shape)
+        out = []
+        for dim, size in enumerate(shape):
+            entry = self.spec[dim] if dim < len(self.spec) else None
             n, idx = 1, 0
             for a in _entry_axes(entry):
                 idx = idx * self.mesh.size(a) + self.mesh.coordinate(a)
                 n *= self.mesh.size(a)
-            if n == 1:
-                continue
-            if x.shape[dim] % n:
+            if size % n:
                 raise ValueError(
-                    f"dim {dim} of shape {tuple(x.shape)} does not split into {n} "
-                    f"blocks over {entry!r}"
+                    f"dim {dim} of shape {shape} does not split into {n} blocks over {entry!r}"
                 )
-            size = x.shape[dim] // n
-            x = x.narrow(dim, idx * size, size)
+            block = size // n
+            out.append((idx * block, (idx + 1) * block))
+        return tuple(out)
+
+    def shard(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's block of the whole array ``x`` (a view) under
+        :meth:`box`."""
+        for dim, (lo, hi) in enumerate(self.box(x.shape)):
+            if hi - lo != x.shape[dim]:
+                x = x.narrow(dim, lo, hi - lo)
         return x
 
 

@@ -94,6 +94,19 @@ def test_kernel_takes_llama_gqa_layout(card, S):
     assert (lse - lse_ref).abs().max().item() <= LSE_TOL
 
 
+def test_no_heads_launch_nothing(card):
+    """A tensor-parallel rank past the head count hands the wrappers zero
+    heads: no kernel launches (the grid would be empty), and the outputs
+    are empty of the right shapes."""
+    q, k, v = (t[:, :0] for t in _qkv_views(64, card))
+    fwd, bwd = attention.flash_fwd_launches, attention.flash_bwd_launches
+    o, lse = attention.flash_attention_fwd(q, k, v, 0.125)
+    assert o.shape == q.shape and lse.shape == (1, 0, 64, 1)
+    grads = attention.flash_attention_bwd(q, k, v, o, lse, torch.zeros_like(o), 0.125)
+    assert [g.shape for g in grads] == [q.shape] * 3
+    assert (attention.flash_fwd_launches, attention.flash_bwd_launches) == (fwd, bwd)
+
+
 def test_kernel_refuses_what_it_cannot_take(card):
     q, k, v = _qkv_views(64, card)
     with pytest.raises(TypeError, match="bfloat16"):

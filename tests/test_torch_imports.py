@@ -17,6 +17,7 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_parallel_worker.py",
     ROOT / "tests" / "torch_llm_tp_worker.py",
     ROOT / "tests" / "torch_seq_pipe_worker.py",
+    ROOT / "tests" / "torch_ckpt_worker.py",
 ]
 
 
@@ -44,7 +45,10 @@ def test_import_pulls_in_no_jax():
         "ray_tpu_torch.util.flightrec, ray_tpu_torch.core.config, "
         "ray_tpu_torch.ops.attention, ray_tpu_torch.ops.ring_attention, "
         "ray_tpu_torch.models.convert, ray_tpu_torch.train.spmd, "
-        "ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding\n"
+        "ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding, "
+        "ray_tpu_torch.core.errors, ray_tpu_torch.core.faults, ray_tpu_torch.util.net, "
+        "ray_tpu_torch.experimental.transfer, ray_tpu_torch.llm.disagg, "
+        "ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.sharded_checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')]\n"
         "assert not bad, bad\n"
         "from ray_tpu_torch.ops import _build\n"

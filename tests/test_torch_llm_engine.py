@@ -154,14 +154,15 @@ def test_sampled_streams_equal_jax(weights, kv_block_size):
 
 
 def test_unported_paths_raise(weights):
-    """A tensor-parallel degree that does not split the heads raises
-    ``ValueError`` naming the field, and one that does raises without a
-    process group (tensor parallelism is ported: tests/test_torch_llm_tp.py);
-    prefill_only and disaggregated handoffs still raise, and so does the
-    card's absence; the paged cache (the default, ``kv_block_size=16``)
-    builds."""
+    """A tensor-parallel degree that does not split the vocabulary raises
+    ``ValueError`` naming the field (a degree above the head count is
+    served: tests/test_torch_llm_tp.py), and one that does raises without a
+    process group; prefill_only on the dense cache raises ``ValueError``
+    (handoffs ship pool blocks: tests/test_torch_disagg.py), and so does
+    the card's absence; the paged cache (the default, ``kv_block_size=16``)
+    builds, and takes a prefill-only request."""
     _, pcfg, _ = weights
-    with pytest.raises(ValueError, match="n_head=2"):
+    with pytest.raises(ValueError, match="does not divide vocab_size=512"):
         PEngine(PLLMConfig(model_config=pcfg, **{**SERVE, "tensor_parallelism": 3}), device="cpu")
     with pytest.raises(RuntimeError, match="process group"):
         PEngine(PLLMConfig(model_config=pcfg, **{**SERVE, "tensor_parallelism": 2}), device="cpu")
@@ -172,10 +173,13 @@ def test_unported_paths_raise(weights):
         "paged": True, "block_size": 16, "blocks_total": 24, "blocks_free": 24, "blocks_used": 0,
     }
     assert eng.pool["k"].shape == (2, 25, 2, 16, 32)
-    with pytest.raises(NotImplementedError):
-        eng.add_request("r", [1, 2, 3], prefill_only=True)
-    with pytest.raises(NotImplementedError):
-        eng.add_handoff_request("r", {"prompt": [1, 2, 3]})
+    eng.add_request("r", [1, 2, 3], prefill_only=True)
+    eng.step()
+    (req,) = eng.pop_finished()
+    assert req.handoff_out["nblocks"] == 1 and eng.stats["handoffs_out"] == 1
+    with pytest.raises(ValueError, match="paged KV cache"):
+        PEngine(PLLMConfig(model_config=pcfg, **SERVE), device="cpu").add_request(
+            "r", [1, 2, 3], prefill_only=True)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             PEngine(PLLMConfig(model_config=pcfg, **SERVE))

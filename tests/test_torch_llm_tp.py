@@ -23,9 +23,13 @@ every rank's outputs identical to rank 0's, logits bit for bit. Each rank's
 cache or pool carries only its KV heads, its weights only its heads and
 vocabulary rows, and a decode step issues one all-reduce per layer after
 the attention output and one after the MLP, one for the embedding and one
-gather of the logits: nothing else. A degree that does not split the
-heads, and a process group of another size, raise on every rank; with no
-process group the engine raises in this process.
+gather of the logits: nothing else. A degree above the head count is
+served, the ranks past it holding no head. A degree that does not split
+the vocabulary, and a process group of another size, raise on every rank;
+with no process group the engine raises in this process. Disaggregated
+serving hands a request's KV from a tp=2 engine to a tp=2 one and to a
+one-rank one, and from a one-rank engine to a tp=2 one, with the unified
+streams.
 """
 
 import dataclasses
@@ -67,8 +71,10 @@ LLAMA_SHAPE = dict(n_layer=2, d_model=64, n_head=4, n_kv_head=2, vocab_size=512,
 # divide): GPT-2's 3 heads over tp=2 (1 and 2 a rank); Llama's 10 query
 # heads over 5 KV heads at tp=4 (2, 3, 2 and 3 a rank: rank 1's heads 2-4
 # read KV heads 1, 1, 2 and rank 3's 7-9 read 3, 4, 4, so those ranks keep
-# a KV head for each query head; rank 2's heads 5-6 read KV heads 2 and 3).
+# a KV head for each query head; rank 2's heads 5-6 read KV heads 2 and 3);
+# and GPT-2 with one head over tp=2, where rank 1 holds no head at all.
 UNEVEN_SHAPES = {
+    "gpt2_1h": dict(n_layer=2, d_model=64, n_head=1, vocab_size=512, max_seq=256),
     "gpt2_3h": dict(n_layer=2, d_model=96, n_head=3, vocab_size=512, max_seq=256),
     "llama_10h": dict(n_layer=2, d_model=160, n_head=10, n_kv_head=5, vocab_size=512,
                       max_seq=128),
@@ -118,6 +124,8 @@ CASES = {
     "llama_spec_dense_tp4": (4, "llama", dict(kv_block_size=0, spec_decode_tokens=K), (GREEDY,)),
     "gpt2_3h_paged_tp2": (2, "gpt2_3h", dict(kv_block_size=16), (GREEDY,)),
     "llama_10h_dense_tp4": (4, "llama_10h", dict(kv_block_size=0), (GREEDY,)),
+    "gpt2_1h_dense_tp2": (2, "gpt2_1h", dict(kv_block_size=0), (GREEDY,)),
+    "gpt2_1h_paged_tp2": (2, "gpt2_1h", dict(kv_block_size=16), (GREEDY,)),
 }
 UNEVEN = [name for name, case in CASES.items() if case[1] in UNEVEN_SHAPES]
 BATCH_CASE = (2, "gpt2", dict(kv_block_size=16))
@@ -136,6 +144,7 @@ def weights(tmp_path_factory):
         ("llama", jllama, pllama.LlamaConfig, LLAMA_SHAPE, 12),
         ("gpt2_3h", jgpt2, pgpt2.GPT2Config, UNEVEN_SHAPES["gpt2_3h"], 13),
         ("llama_10h", jllama, pllama.LlamaConfig, UNEVEN_SHAPES["llama_10h"], 14),
+        ("gpt2_1h", jgpt2, pgpt2.GPT2Config, UNEVEN_SHAPES["gpt2_1h"], 15),
     ):
         config = jmod.LlamaConfig if family.startswith("llama") else jmod.GPT2Config
         jcfg = dataclasses.replace(config.tiny(**fields), dtype=jnp.float32, attn_impl="reference")
@@ -185,12 +194,14 @@ def _worker_cases(weights, world):
         cases.append(dict(name="batch", kind="batch", config=_fields(weights, w, family, over)[1],
                           sampling=GREEDY, batch=BATCH))
         _, good = _fields(weights, 2, "gpt2", dict(kv_block_size=16))
-        one_head = dict(good, model_config=("gpt2", dict(good["model_config"][1], n_head=1)))
+        odd_vocab = dict(good, model_config=("gpt2", dict(good["model_config"][1], vocab_size=513)))
         _, llama4 = _fields(weights, 4, "llama", dict(kv_block_size=16))
         cases.append(dict(name="raises", kind="raises", configs=[
-            one_head,  # tp=2 does not divide n_head=1
+            odd_vocab,  # tp=2 does not divide vocab_size=513
             llama4,  # tp=4 over a group of 2 ranks
         ]))
+        cases.append(dict(name="handoff", kind="handoff", config=good, prompts=_prompts(),
+                          tokens=GREEDY["max_tokens"]))
     return cases
 
 
@@ -347,6 +358,8 @@ def _local_heads(family, world, rank):
     one per query head."""
     shape = _shape(family)
     lo, hi = rank * shape["n_head"] // world, (rank + 1) * shape["n_head"] // world
+    if world > shape["n_head"]:  # rank r holds head r; the ranks past the heads none
+        lo, hi = min(rank, shape["n_head"]), min(rank + 1, shape["n_head"])
     if not family.startswith("llama"):
         return hi - lo, hi - lo
     reads = [h * shape["n_kv_head"] // shape["n_head"] for h in range(lo, hi)]
@@ -422,7 +435,7 @@ def test_batch_processor_serves_a_tp_engine(runs):
 def test_failing_configurations_raise_on_every_rank(runs):
     for r in runs[0][2]:
         (kind1, msg1), (kind2, msg2) = r["raises"]["raised"]
-        assert kind1 == "ValueError" and "n_head=1" in msg1
+        assert kind1 == "ValueError" and "does not divide vocab_size=513" in msg1
         assert kind2 == "ValueError" and "2 ranks" in msg2
 
 
@@ -433,7 +446,7 @@ def test_tp_without_a_process_group_raises(weights):
     assert not torch.distributed.is_initialized()
     with pytest.raises(RuntimeError, match="process group of 2 ranks"):
         PEngine(config, device="cpu")
-    with pytest.raises(ValueError, match="tensor_parallelism=4 is more than n_head=2"):
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
         PEngine(dataclasses.replace(config, tensor_parallelism=4), device="cpu")
 
 
@@ -449,9 +462,10 @@ def test_jax_engine_serves_uneven_heads_as_at_tp1(runs, weights, name):
 
 def test_jax_engine_serves_fewer_heads_than_ranks(weights):
     """The reference also serves a degree above the head count (GPT-2 with
-    one head at tensor_parallelism=2), with its own tp=1 streams; the port
-    refuses it (test_failing_configurations_raise_on_every_rank), since a
-    rank would hold no head: the gap ROADMAP Queue 3 records."""
+    one head at tensor_parallelism=2), with its own tp=1 streams; so does
+    the port, its rank past the head count holding no head
+    (test_tp_engine_matches_jax holds its gpt2_1h cases to the JAX
+    engine's streams)."""
     jcfg = dataclasses.replace(weights["gpt2"][0], n_head=1)
     prompts = _prompts()[:2]
     streams = [
@@ -461,3 +475,23 @@ def test_jax_engine_serves_fewer_heads_than_ranks(weights):
         for tp in (1, 2)
     ]
     assert streams[0] == streams[1]
+
+
+def test_tp_handoffs_equal_the_unified_streams(runs):
+    """Disaggregated serving under tensor parallelism: a tp=2 prefill
+    engine hands off to a tp=2 decode engine, to a one-rank engine, and a
+    one-rank prefill engine to a tp=2 one; every hop's greedy streams equal
+    the JAX engine's unified ones, with no prefill on the decode side, no
+    fallback, and every rank returning rank 0's."""
+    ranks, want = runs
+    streams = want["gpt2_paged"]["streams"][0]
+    for r in ranks[2]:
+        got = r["handoff"]
+        hops = ("tp_tp", "tp_one", "one_tp") if "tp_one" in got else ("tp_tp", "one_tp")
+        for hop in hops:
+            out, stats = got[hop]
+            assert out == streams, hop
+            assert stats["prefill_tokens"] == 0 and stats["kv_fallbacks"] == 0, hop
+            assert stats["handoffs_in"] == len(streams), hop
+        assert got["tp_tp"] == ranks[2][0]["handoff"]["tp_tp"]
+    assert "tp_one" in ranks[2][0]["handoff"]

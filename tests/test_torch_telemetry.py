@@ -35,7 +35,9 @@ import numpy as np
 import pytest
 import torch
 
+import ray_tpu.llm.disagg  # noqa: F401 (declares the JAX kv-ship series)
 import ray_tpu.llm.spec_decode  # noqa: F401 (declares the JAX spec series)
+import ray_tpu_torch.llm.disagg  # noqa: F401 (declares the port's kv-ship series)
 from ray_tpu.core.config import GLOBAL_CONFIG as JCONFIG
 from ray_tpu.llm import batch as jbatch
 from ray_tpu.llm.config import LLMConfig as JLLMConfig
@@ -251,7 +253,7 @@ def _check_series(res, spec: bool):
     pmeta = pmetrics.registry().snapshot()["meta"]
     jmeta = jmetrics.registry().snapshot()["meta"]
     names = [n for n in pmeta if n.startswith("raytpu_llm_")]
-    assert len(names) == 11
+    assert len(names) == 12
     assert {n: pmeta[n] for n in names} == {n: jmeta[n] for n in names}
     assert pmetrics.runtime_catalog()["raytpu_llm_itl_seconds"] == jmetrics.runtime_catalog()[
         "raytpu_llm_itl_seconds"]

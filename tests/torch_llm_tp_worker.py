@@ -21,9 +21,15 @@ to ``OUT/rank{RANK}.pkl``. A case is a dict with ``name`` and ``kind``:
 - ``"batch"``: ``build_llm_processor`` on ``config`` twice over ``batch``;
   its outputs and whether the second call reused the engine;
 - ``"raises"``: ``configs``, each of which must raise on building the
-  engine; the exception's type and message of each.
+  engine; the exception's type and message of each;
+- ``"handoff"``: disaggregated serving of ``prompts`` (greedy, ``tokens``
+  each) from a prefill-only engine to a decode engine, both of
+  ``config`` (paged): tp to tp, tp to a one-rank engine on rank 0, and a
+  one-rank prefill engine on rank 0 (its handoffs broadcast to every rank)
+  to tp. Returns each hop's streams and the decode engines' stats.
 """
 
+import dataclasses
 import datetime
 import pickle
 import sys
@@ -155,7 +161,46 @@ def raises(case: dict) -> dict:
     return dict(raised=out)
 
 
-KINDS = {"serve": serve, "batch": batch, "raises": raises}
+def _prefill(engine, prompts, sampling) -> list:
+    for i, p in enumerate(prompts):
+        engine.add_request(f"p{i}", p, sampling, prefill_only=True)
+    while engine.has_unfinished():
+        engine.step()
+    done = {r.request_id: r.handoff_out for r in engine.pop_finished()}
+    return [done[f"p{i}"] for i in range(len(prompts))]
+
+
+def _decode(engine, handoffs, sampling) -> tuple[list, dict]:
+    for i, h in enumerate(handoffs):
+        engine.add_handoff_request(f"d{i}", h, sampling)
+    while engine.has_unfinished():
+        engine.step()
+    done = {r.request_id: r.generated for r in engine.pop_finished()}
+    return [done[f"d{i}"] for i in range(len(handoffs))], dict(engine.stats)
+
+
+def handoff(case: dict) -> dict:
+    config = _config(case["config"])
+    one = dataclasses.replace(config, tensor_parallelism=1)
+    sampling = SamplingParams(max_tokens=case["tokens"])
+    rank = dist.get_rank()
+    out = {}
+    # tp -> tp: every rank returns rank 0's handoffs, and decodes them.
+    hs = _prefill(LLMEngine(config, device="cpu"), case["prompts"], sampling)
+    out["tp_tp"] = _decode(LLMEngine(config, device="cpu"), hs, sampling)
+    # tp -> one rank: the tp group prefills, rank 0 alone decodes.
+    hs = _prefill(LLMEngine(config, device="cpu"), case["prompts"], sampling)
+    if rank == 0:
+        out["tp_one"] = _decode(LLMEngine(one, device="cpu"), hs, sampling)
+    # one rank -> tp: rank 0 prefills alone and broadcasts its handoffs.
+    box = [_prefill(LLMEngine(one, device="cpu"), case["prompts"], sampling) if rank == 0 else None]
+    dist.broadcast_object_list(box, src=0)
+    out["one_tp"] = _decode(LLMEngine(config, device="cpu"), box[0], sampling)
+    dist.barrier()  # rank 0's fabric serves every pull before it moves on
+    return out
+
+
+KINDS = {"serve": serve, "batch": batch, "raises": raises, "handoff": handoff}
 
 
 def main(rank: int, world: int, store: str, cases_path: str, out_dir: str) -> None:
