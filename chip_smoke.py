@@ -165,6 +165,28 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    the paged ones never. Every arm's telemetry is checked as in phase 4,
    with the drafted and accepted counters and the accept-rate gauge.
 
+17. The core runtime (``runtime``): ``ray_tpu_torch.init(num_cpus=4)``
+   starts the port's own GCS, node manager and worker processes
+   (``ray_tpu_torch.core.worker_main``), whose ``GPU`` resource must count
+   the cards ``nvidia-smi`` lists. The host plane: a no-op task's round
+   trip (median of 50) and ``put``/``get`` of a 256 MiB bf16 CPU tensor
+   (GB/s, bits equal). A ``num_gpus=1`` task makes a 64 MiB bf16 tensor on
+   the card from a seeded generator and returns it: this process gets a CPU
+   bf16 tensor with the bits of the same tensor made here. A
+   ``num_gpus=1`` actor builds phase 3's ``serve`` engine in its own
+   process and serves phase 3's warm-up and 6 requests as token ids: its
+   greedy streams must equal ``serve``'s and its own flash_fwd launches
+   ``serve``'s (60); it reports its pid, card, peak memory and decode
+   tok/s. While it holds the one ``GPU``, a second ``num_gpus=1`` task must
+   stay unscheduled for 2 s, and run after ``kill(actor)``. A ``num_gpus=1``
+   task takes one training step of phase 10's GPT-2-125M on its batch and
+   initial state: 12 launches of each kernel, loss and gradient norm of
+   the initial params within the training tolerances of phase 10's (their
+   bit equality printed), and the step's loss against phase 10's first
+   step. After ``shutdown()`` no worker process may survive and
+   ``nvidia-smi`` may list none as a compute app. Printed as one
+   ``{"runtime": ...}`` line with the host copy path ``_native`` took.
+
 Telemetry stays on (``GLOBAL_CONFIG`` of :mod:`ray_tpu_torch.core.config`)
 for every phase but the A/B's "off" arm.
 
@@ -181,6 +203,7 @@ import datetime
 import functools
 import json
 import math
+import os
 import pickle
 import re
 import shutil
@@ -694,7 +717,8 @@ def serve_engine(engine, rng) -> dict:
     1000-token prompt for its TTFT."""
     ids = token_ids(rng, engine)
     # Warm-up request (cuBLAS handles, allocator), not part of the run.
-    engine.generate([ids(40)], SamplingParams(max_tokens=2))
+    warmup = ids(40)
+    engine.generate([warmup], SamplingParams(max_tokens=2))
 
     prompts = traffic(engine, rng)  # shared_b hits shared_a's pooled 64-token prefix
     prefix = prompts["shared_a"][:64]
@@ -760,6 +784,7 @@ def serve_engine(engine, rng) -> dict:
         kv_gb=kv_bytes(engine) / 1e9,
         prompt=prompts["p300"],
         telemetry=telemetry,
+        traffic=dict(warmup=warmup, prompts=prompts, streams=run["streams"]),
     )
 
 
@@ -1242,10 +1267,9 @@ def llama_train_config() -> LlamaConfig:
     return cfg
 
 
-def train_path(dev, cfg) -> dict:
-    """The training path on one GPU: make_train_step over the family's
-    loss_fn with default_optimizer, driven as bench.py drives the JAX step
-    (batch [TRAIN_B, max_seq], targets = tokens rolled by one)."""
+def train_setup(dev, cfg):
+    """The training path's model module, batch (seed 1), optimizer and
+    initial state (seed 0) on ``dev``."""
     model = model_of(cfg)
     g = torch.Generator(device=dev).manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_B, cfg.max_seq), generator=g, device=dev)
@@ -1255,6 +1279,15 @@ def train_path(dev, cfg) -> dict:
         functools.partial(model.init_params, cfg=cfg, device=dev), opt,
         torch.Generator(device=dev).manual_seed(0), device=dev,
     )
+    return model, batch, opt, state
+
+
+def train_path(dev, cfg) -> dict:
+    """The training path on one GPU: make_train_step over the family's
+    loss_fn with default_optimizer, driven as bench.py drives the JAX step
+    (batch [TRAIN_B, max_seq], targets = tokens rolled by one)."""
+    model, batch, opt, state = train_setup(dev, cfg)
+    tokens = batch["tokens"]
 
     # One step from the initial params through the kernels, through the
     # plain attention (bf16, and f32 for bf16's own noise floor), and with
@@ -2130,6 +2163,255 @@ def serve_tp(tmp: str, stream_bound: float, logits_tol: dict) -> dict:
                 stream_bound=stream_bound)
 
 
+# The core runtime (runtime): the port's own GCS, node manager and worker
+# processes (ray_tpu_torch.core) drive the card from a GPU actor that serves
+# and a GPU task that trains. The launch counts live in each worker process:
+# the actor and the task zero theirs just before their path and report them
+# just after.
+RUNTIME_CPUS = 4
+RUNTIME_NOOP_CALLS = 50
+RUNTIME_PUT_BYTES = 256 * 2**20  # the host plane's bf16 CPU tensor
+RUNTIME_CUDA_BYTES = 64 * 2**20  # the bf16 tensor a GPU task returns
+RUNTIME_CUDA_SEED = 3
+RUNTIME_WAIT_S = 2.0  # a second GPU demand must stay unscheduled this long
+RUNTIME_TIMEOUT_S = 300
+WORKER_MODULE = "ray_tpu_torch.core.worker_main"
+
+
+def seeded_bf16(n_bytes: int, device, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(n_bytes // 2, generator=g, device=device).to(torch.bfloat16)
+
+
+def card_name() -> str:
+    return torch.cuda.get_device_name() if torch.cuda.is_available() else "cpu"
+
+
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9 if torch.cuda.is_available() else 0.0
+
+
+def runtime_noop():
+    return os.getpid()
+
+
+def runtime_cuda_tensor(device: str):
+    """A GPU task's result: a bf16 tensor made on the card from a seeded
+    generator, returned as it is (the object store brings it to the host)."""
+    t = seeded_bf16(RUNTIME_CUDA_BYTES, device, RUNTIME_CUDA_SEED)
+    return os.getpid(), t
+
+
+class RuntimeServer:
+    """Phase 3's ``serve`` engine (GPT-2-125M on the dense cache, 16 slots x
+    2048 positions, seed-0 weights), built in a worker process of the
+    port's runtime."""
+
+    def __init__(self):
+        self.engine = build_engine(dict(kv_block_size=0))
+
+    def ready(self) -> int:
+        return os.getpid()
+
+    def serve(self, warmup: list, prompts: dict) -> dict:
+        """Phase 3's warm-up request, then its 6 requests (token ids), with
+        this process's launch counts zeroed just before and read just
+        after."""
+        engine = self.engine
+        engine.generate([warmup], SamplingParams(max_tokens=2))
+        attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
+        run = drive(engine, prompts, SamplingParams(max_tokens=MAX_TOKENS))
+        launches = {"flash_fwd": attention.flash_fwd_launches,  # read just after
+                    "flash_bwd": attention.flash_bwd_launches}
+        return dict(pid=os.getpid(), device=card_name(), peak_mem_gb=peak_gb(), launches=launches,
+                    decode_tok_s=run["decode_tokens"] / run["decode_s"] if run["decode_s"] else 0.0,
+                    streams=run["streams"])
+
+
+def runtime_probe():
+    return os.getpid()
+
+
+def runtime_train_step(device: str) -> dict:
+    """One ``make_train_step`` step of GPT-2-125M at ``train_config()`` on
+    the ``train`` path's batch and initial state, in a worker process: the
+    loss and gradient norm of the initial params (the ``train`` path's
+    ``checks["kernel"]``), then the step with this process's launch counts
+    zeroed just before and read just after."""
+    dev = torch.device(device)
+    cfg = train_config()
+    model, batch, opt, state = train_setup(dev, cfg)
+    loss, grad_norm = loss_and_grad_norm(cfg, state["params"], batch)
+    step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=cfg), opt)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the step
+    _, m = step(state, batch)
+    step_loss = m["loss"].item()
+    launches = {"flash_fwd": attention.flash_fwd_launches,  # read just after
+                "flash_bwd": attention.flash_bwd_launches}
+    return dict(pid=os.getpid(), device=card_name(), loss=loss, grad_norm=grad_norm,
+                step_loss=step_loss, launches=launches, peak_mem_gb=peak_gb())
+
+
+def nvidia_smi(*query: str) -> list[str]:
+    out = subprocess.run(["nvidia-smi", *query, "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60, check=True).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def live_workers(pids) -> list[int]:
+    """Those of ``pids`` still running (a reaped or zombie process is not),
+    and any child of this process that runs the port's worker module."""
+    alive = []
+    for pid in sorted(set(pids)):
+        try:
+            state = Path(f"/proc/{pid}/stat").read_text().rsplit(")", 1)[1].split()[0]
+        except OSError:
+            continue
+        if state != "Z":
+            alive.append(pid)
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            cmd = (stat.parent / "cmdline").read_bytes().replace(b"\0", b" ").decode()
+        except OSError:
+            continue
+        if int(fields[1]) == os.getpid() and fields[0] != "Z" and WORKER_MODULE in cmd:
+            alive.append(int(stat.parent.name))
+    return sorted(set(alive))
+
+
+def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cuda") -> dict:
+    """The core runtime on the card (see the module docstring, phase 17)."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import _native
+    from ray_tpu_torch.core import api as rt_api
+
+    t_phase = time.perf_counter()
+    gpu = {"num_gpus": 1} if device == "cuda" else {}
+    timeout = RUNTIME_TIMEOUT_S
+    out = dict(card=card)
+    pids = set()
+    rt.init(num_cpus=RUNTIME_CPUS)
+    try:
+        out["init_s"] = time.perf_counter() - t_phase
+        cards = len(nvidia_smi("--query-gpu=name")) if device == "cuda" else 0
+        out["cluster_gpus"] = rt.cluster_resources().get("GPU", 0.0)
+        assert out["cluster_gpus"] == cards, (rt.cluster_resources(), cards)
+
+        # Host plane: a no-op task's round trip, and put/get of a bf16 tensor.
+        noop = rt.remote(runtime_noop)
+        pids.add(rt.get(noop.remote(), timeout=timeout))  # starts the worker
+        rtt = []
+        for _ in range(RUNTIME_NOOP_CALLS):
+            t0 = time.perf_counter()
+            pids.add(rt.get(noop.remote(), timeout=timeout))
+            rtt.append(time.perf_counter() - t0)
+        out["noop_rtt_ms_median"] = 1e3 * median(rtt)
+        host = seeded_bf16(RUNTIME_PUT_BYTES, device, 0).cpu()
+        t0 = time.perf_counter()
+        ref = rt.put(host)
+        put_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = rt.get(ref, timeout=timeout)
+        get_s = time.perf_counter() - t0
+        assert back.dtype == torch.bfloat16 and back.device.type == "cpu", (back.dtype, back.device)
+        assert torch.equal(back.view(torch.int16), host.view(torch.int16)), "put/get changed the bits"
+        out["put_get"] = dict(mib=RUNTIME_PUT_BYTES / 2**20, put_ms=1e3 * put_s, get_ms=1e3 * get_s,
+                              put_gb_s=RUNTIME_PUT_BYTES / put_s / 1e9,
+                              get_gb_s=RUNTIME_PUT_BYTES / get_s / 1e9, equal=True)
+        del ref, back, host
+
+        # A CUDA tensor through the object store: made on the card by a GPU
+        # task, read back on the host with its dtype, shape and bits.
+        make = rt.remote(**gpu)(runtime_cuda_tensor)
+        t0 = time.perf_counter()
+        pid, first = rt.get(make.remote(device), timeout=timeout)  # starts the worker, CUDA context
+        first_s = time.perf_counter() - t0
+        pids.add(pid)
+        t0 = time.perf_counter()
+        pid, got = rt.get(make.remote(device), timeout=timeout)
+        warm_s = time.perf_counter() - t0
+        pids.add(pid)
+        want = seeded_bf16(RUNTIME_CUDA_BYTES, device, RUNTIME_CUDA_SEED).cpu()
+        for t in (first, got):
+            assert t.device.type == "cpu" and t.dtype == torch.bfloat16 and t.shape == want.shape, (
+                t.device, t.dtype, t.shape)
+            assert torch.equal(t.view(torch.int16), want.view(torch.int16)), "the CUDA return changed bits"
+        out["cuda_return"] = dict(mib=RUNTIME_CUDA_BYTES / 2**20, first_call_s=first_s, ms=1e3 * warm_s,
+                                  gb_s=RUNTIME_CUDA_BYTES / warm_s / 1e9, equal=True)
+        del first, got, want
+
+        # A GPU actor serves phase 3's traffic on phase 3's engine.
+        t0 = time.perf_counter()
+        server = rt.remote(**gpu)(RuntimeServer).remote()
+        pids.add(rt.get(server.ready.remote(), timeout=timeout))
+        start_s = time.perf_counter() - t0
+        traffic = serve_run["traffic"]
+        res = rt.get(server.serve.remote(traffic["warmup"], traffic["prompts"]), timeout=timeout)
+        pids.add(res["pid"])
+        assert res["pid"] != os.getpid()
+        assert res["streams"] == traffic["streams"], "the actor's greedy streams differ from serve's"
+        assert res["launches"] == {"flash_fwd": serve_run["launches"], "flash_bwd": 0}, res["launches"]
+        if device == "cuda":
+            assert res["device"] == torch.cuda.get_device_name(0), res["device"]
+        out["actor"] = dict(pid=res["pid"], device=res["device"], start_s=start_s,
+                            peak_mem_gb=res["peak_mem_gb"], decode_tok_s=res["decode_tok_s"],
+                            serve_decode_tok_s=serve_run["decode_tok_s"],
+                            serve_peak_mem_gb=serve_run["peak_mem_gb"], launches=res["launches"],
+                            streams_equal_serve=True)
+
+        # GPU accounting: while the actor holds the one GPU, a second GPU
+        # demand stays unscheduled; after kill(actor) it runs.
+        probe = rt.remote(**gpu)(runtime_probe).remote()
+        ready, _ = rt.wait([probe], timeout=RUNTIME_WAIT_S)
+        waited = not ready
+        t0 = time.perf_counter()
+        rt.kill(server)
+        kill_s = time.perf_counter() - t0
+        while rt.available_resources().get("GPU", 0.0) < cards and time.perf_counter() - t0 < timeout:
+            time.sleep(0.01)
+        freed_s = time.perf_counter() - t0
+        probe_pid = rt.get(probe, timeout=timeout)
+        out["gpu_accounting"] = dict(waited_while_held=waited, wait_s=RUNTIME_WAIT_S, kill_s=kill_s,
+                                     gpu_free_after_kill_s=freed_s,
+                                     ran_after_kill_s=time.perf_counter() - t0,
+                                     probe_on_new_worker=probe_pid not in pids)
+        pids.add(probe_pid)
+        if device == "cuda":
+            assert waited, "a second num_gpus=1 task ran while the actor held the GPU"
+
+        # A GPU task takes one training step on the train path's batch.
+        tr = rt.get(rt.remote(**gpu)(runtime_train_step).remote(device), timeout=timeout)
+        pids.add(tr["pid"])
+        (l_d, n_d), step_d = train_run["checks"]["kernel"], train_run["losses"][0]
+        n_layer = train_config().n_layer  # "mlp" remat: one forward and one backward a layer
+        assert tr["launches"] == {"flash_fwd": n_layer, "flash_bwd": n_layer}, tr["launches"]
+        assert abs(tr["loss"] - l_d) <= TRAIN_LOSS_TOL, (tr["loss"], l_d)
+        assert abs(tr["grad_norm"] - n_d) / n_d <= TRAIN_GNORM_TOL, (tr["grad_norm"], n_d)
+        assert abs(tr["step_loss"] - step_d) <= TRAIN_LOSS_TOL, (tr["step_loss"], step_d)
+        out["train_task"] = dict(tr, train_loss=l_d, train_grad_norm=n_d, train_step_loss=step_d,
+                                 bit_equal=dict(loss=tr["loss"] == l_d, grad_norm=tr["grad_norm"] == n_d,
+                                                step_loss=tr["step_loss"] == step_d))
+        for node in rt_api._runtime.nodes:
+            pids.update(w.proc.pid for w in node.workers.values() if w.proc is not None)
+    finally:
+        rt.shutdown()
+
+    # Nothing of the session survives: no worker process, no compute app.
+    out["workers_seen"] = len(pids)
+    survivors = live_workers(pids)
+    assert not survivors, f"worker processes survived shutdown(): {survivors}"
+    if device == "cuda":
+        apps = {int(p) for p in nvidia_smi("--query-compute-apps=pid") if p.isdigit()}
+        assert not apps & pids, f"worker pids still hold the card: {sorted(apps & pids)}"
+        out["compute_apps_after"] = sorted(apps)
+    out["native_copy_path"] = _native.copy_path()
+    out["launches"] = {"flash_fwd": res["launches"]["flash_fwd"] + tr["launches"]["flash_fwd"],
+                       "flash_bwd": res["launches"]["flash_bwd"] + tr["launches"]["flash_bwd"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_entry(name, built, rows, head, launches_by_path, replaces) -> dict:
     return {
         "name": name,
@@ -2168,11 +2450,15 @@ def main() -> int:
     # the A/B's "off" arm.
     GLOBAL_CONFIG.metrics_enabled = GLOBAL_CONFIG.flightrec = GLOBAL_CONFIG.spec_decode = True
     serve_launches, dense_checks, bf16_bound, ab, family_tol = {}, {}, None, {}, {}
+    serve_run = None  # the serve path's run, whose traffic the runtime phase replays
     for name, fields, per_layer in SERVE_PATHS:
         t_phase = time.perf_counter()
         torch.cuda.reset_peak_memory_stats()
         engine = build_engine(fields)
         run = serve_engine(engine, np.random.default_rng(0))
+        traffic = run.pop("traffic")
+        if name == "serve":
+            serve_run = dict(run, traffic=traffic)
         family = type(engine.model_config).__name__
         assert run["launches"] == per_layer * engine.model_config.n_layer * run["fresh_prefills"], (
             name, run["launches"], run["fresh_prefills"])
@@ -2249,6 +2535,10 @@ def main() -> int:
             spec = spec_path(name, fields, bf16_bound, tmp)
             spec_launches[name] = (spec["launches"], spec["bwd_launches"])
             print(json.dumps({"spec": spec}), flush=True)
+    torch.cuda.empty_cache()
+
+    runtime = runtime_path(card, serve_run, train)
+    print(json.dumps({"runtime": runtime}), flush=True)
 
     fwd_head = next(
         r for r in fwd_rows if (r["layout"], r["B"], r["H"], r["S"]) == ("qkv_views", 1, 12, HEADLINE_S)
@@ -2263,7 +2553,8 @@ def main() -> int:
                         "train_shard": shard_run["launches"]["flash_fwd"],
                         "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_fwd"],
                         "train_shard_ckpt": shard_run["launches_ckpt"]["flash_fwd"],
-                        **{k: f for k, (f, _) in spec_launches.items()}},
+                        **{k: f for k, (f, _) in spec_launches.items()},
+                        "runtime": runtime["launches"]["flash_fwd"]},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
     bwd = kernel_entry("flash_bwd", built, bwd_rows, bwd_head,
@@ -2275,7 +2566,8 @@ def main() -> int:
                         "train_shard": shard_run["launches"]["flash_bwd"],
                         "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_bwd"],
                         "train_shard_ckpt": shard_run["launches_ckpt"]["flash_bwd"],
-                        **{k: b for k, (_, b) in spec_launches.items()}},
+                        **{k: b for k, (_, b) in spec_launches.items()},
+                        "runtime": runtime["launches"]["flash_bwd"]},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)

@@ -12,6 +12,52 @@ speculative decoding, the reference's serving telemetry) and
 :mod:`ray_tpu_torch.train.spmd`, with the causal flash-attention forward and
 backward as hand-written CUDA kernels for Hopper (``ops/csrc/``).
 
-Importing the package builds nothing; a kernel is compiled with ``nvcc`` the
-first time a CUDA tensor reaches it (:mod:`ray_tpu_torch.ops._build`).
+It also carries the reference's core runtime (:mod:`ray_tpu_torch.core`:
+tasks, actors, owned objects, the GCS, the node manager and its worker
+processes), so ``import ray_tpu_torch; ray_tpu_torch.init()`` and
+``@ray_tpu_torch.remote(num_gpus=1)`` run work on the card in a worker
+process. A node advertises its visible CUDA cards as the ``GPU`` resource;
+a CUDA tensor put into the object store, or returned by a task, arrives as
+a host tensor with its dtype, shape and bits.
+
+Importing the package builds nothing and starts nothing: the runtime's
+symbols load on first use, and a kernel is compiled with ``nvcc`` the first
+time a CUDA tensor reaches it (:mod:`ray_tpu_torch.ops._build`).
 """
+
+_CORE_API = (
+    "init",
+    "shutdown",
+    "is_initialized",
+    "remote",
+    "get",
+    "put",
+    "wait",
+    "kill",
+    "cancel",
+    "get_actor",
+    "method",
+    "nodes",
+    "drain_node",
+    "cluster_resources",
+    "available_resources",
+    "get_runtime_context",
+    "transport_stats",
+    "ObjectRef",
+    "ObjectRefGenerator",
+    "ActorHandle",
+)
+
+__all__ = list(_CORE_API)
+
+
+def __getattr__(name):
+    if name in _CORE_API:
+        from ray_tpu_torch.core import api as _api
+
+        return getattr(_api, name)
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_CORE_API))

@@ -1,22 +1,34 @@
 """Deterministic, seeded fault injection. Port of ``ray_tpu/core/faults.py``.
 
 One process-wide :class:`FaultInjector` is consulted at the port's
-failure-prone seams. The port has one such seam so far:
+failure-prone seams:
 
-==========  ===========  ===============================================
-site        actions      injected where
-==========  ===========  ===============================================
-``kvship``  sever delay  the disaggregated-serving KV handoff pull
-                         (:func:`ray_tpu_torch.llm.disagg.pull_kv`):
-                         ``sever`` fails the pull, and the decode engine
-                         falls back to local (chunked) prefill with the
-                         same greedy tokens; ``delay`` sleeps the pull.
-                         ``match`` globs the request id.
-==========  ===========  ===============================================
+==========  =====================  =======================================
+site        actions                injected where
+==========  =====================  =======================================
+``send``    drop delay dup sever   ``protocol.Connection._send`` (per frame)
+``recv``    drop delay dup         ``protocol.Connection._handle_frame``
+``node``    kill_worker            node worker-monitor sweep (a leased
+                                   task worker)
+``node``    lease_delay            ``node._h_request_lease`` entry
+``node``    preempt                node worker-monitor sweep (preemption
+                                   notice, then a graceful self-drain)
+``gcs``     heartbeat_blackhole    ``gcs._h_node_heartbeat`` (partition)
+``store``   pull_corrupt           ``node._h_fetch_object`` (flip bytes)
+``store``   pull_lose              ``node._h_fetch_object`` (raise)
+``kvship``  sever delay            the disaggregated-serving KV handoff
+                                   pull (:func:`ray_tpu_torch.llm.disagg.
+                                   pull_kv`): ``sever`` fails the pull, and
+                                   the decode engine falls back to local
+                                   (chunked) prefill with the same greedy
+                                   tokens; ``delay`` sleeps the pull.
+                                   ``match`` globs the request id.
+==========  =====================  =======================================
 
-The parser knows every site of the reference (``send``, ``recv``,
-``node``, ...), so one ``RAY_TPU_FAULTS`` value parses the same in both
-packages; rules for sites the port does not have yet never fire here.
+The parser knows every site of the reference (``chan``, ``dcn``, ...), so
+one ``RAY_TPU_FAULTS`` value parses the same in both packages; rules for
+sites the port does not have yet never fire here. The variable is
+inherited by spawned workers.
 
 Determinism: every rule owns a ``random.Random`` seeded from the string
 ``"<injector seed>:<rule index>:<site>.<action>"``, and consumes exactly one
@@ -98,6 +110,14 @@ class FaultRule:
                 f"unknown action {self.action!r} for site {self.site!r} "
                 f"(actions: {sorted(actions)})"
             )
+
+    def choice(self, seq: Sequence):
+        """Deterministic pick from the rule's own stream (victim choice).
+        Takes the injector lock: in-process clusters run several node
+        monitor loops against one injector, and an unlocked draw would
+        interleave the stream differently run to run."""
+        with self._lock:
+            return seq[self.rng.randrange(len(seq))]
 
 
 class FaultInjector:

@@ -9,14 +9,15 @@ process-wide catalog that rejects a bad prefix, a second kind for one name
 and unbounded-cardinality tag keys. ``RAY_TPU_METRICS_ENABLED=0`` is the
 global kill switch that hot-path record sites check.
 
-Not ported: the reference's ``LocalHistogram`` (a lock-free accumulator
-for frame-scale paths the port does not have) and the pickling hooks that
-re-register a metric in an actor's process (the port has no actors).
+Frame-scale paths (the RPC fabric, the scheduler) record into a lock-free
+``LocalHistogram`` folded into a snapshot at report time. A metric pickled
+into a task or an actor re-registers in the process that loads it.
 """
 
 from __future__ import annotations
 
 import threading
+from bisect import bisect_left as _bisect_left
 from typing import Dict, Optional, Tuple
 
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
@@ -106,6 +107,39 @@ def runtime_catalog() -> Dict[str, dict]:
     """Copy of the declared runtime series (for lint checks and docs)."""
     with _catalog_lock:
         return {k: dict(v) for k, v in _runtime_catalog.items()}
+
+
+class LocalHistogram:
+    """Lock-free histogram accumulator for single-threaded hot paths.
+
+    The registry takes a lock per record: fine at request scale, too much
+    at RPC-frame scale. A LocalHistogram is mutated by exactly one thread
+    (an event loop) and folded into a snapshot point at report time.
+    observe() is one bisect and one increment; buckets cumulate only in
+    as_value().
+    """
+
+    __slots__ = ("boundaries", "count", "sum", "_raw")
+
+    def __init__(self, boundaries: Optional[list] = None):
+        self.boundaries = list(boundaries or _DEFAULT_HIST_BOUNDARIES)
+        self.count = 0
+        self.sum = 0.0
+        # Per-bucket (non-cumulative) counts; the extra slot is overflow
+        # (> every boundary), represented only by `count` on the wire.
+        self._raw = [0] * (len(self.boundaries) + 1)
+
+    def observe(self, value: float) -> None:
+        self.count += 1
+        self.sum += value
+        self._raw[_bisect_left(self.boundaries, value)] += 1
+
+    def as_value(self) -> dict:
+        buckets, total = [], 0
+        for n in self._raw[:-1]:
+            total += n
+            buckets.append(total)
+        return {"count": self.count, "sum": self.sum, "buckets": buckets}
 
 
 class MetricsRegistry:
@@ -290,6 +324,18 @@ def registry() -> MetricsRegistry:
     return _registry
 
 
+def _rebuild_metric(cls, name, description, tag_keys, boundaries, defaults):
+    """Unpickle hook: re-run the constructor so the metric registers in
+    the process that loads it. A metric captured in a cloudpickled closure
+    (a remote task or actor defined next to its metrics) would otherwise
+    arrive unregistered, and its first record() would raise."""
+    if cls.kind == "histogram":
+        metric = cls(name, description, boundaries, tag_keys)
+    else:
+        metric = cls(name, description, tag_keys)
+    return metric.set_default_tags(defaults)
+
+
 class _Metric:
     kind = ""
 
@@ -304,6 +350,7 @@ class _Metric:
         self._description = description
         self._tag_keys = frozenset(tag_keys)
         self._default_tags: dict = {}
+        self._boundaries = kw.get("boundaries")
         if name.startswith(RUNTIME_PREFIX):
             # Runtime-owned series self-register in the lint catalog.
             declare_runtime_metric(
@@ -318,6 +365,19 @@ class _Metric:
     def set_default_tags(self, tags: dict) -> "_Metric":
         self._default_tags = dict(tags)
         return self
+
+    def __reduce__(self):
+        return (
+            _rebuild_metric,
+            (
+                type(self),
+                self._name,
+                self._description,
+                tuple(self._tag_keys),
+                self._boundaries,
+                self._default_tags,
+            ),
+        )
 
     def _tags(self, tags: dict | None) -> dict:
         out = dict(self._default_tags)

@@ -18,6 +18,7 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_llm_tp_worker.py",
     ROOT / "tests" / "torch_seq_pipe_worker.py",
     ROOT / "tests" / "torch_ckpt_worker.py",
+    ROOT / "tests" / "test_torch_core_cuda.py",
 ]
 
 
@@ -48,11 +49,28 @@ def test_import_pulls_in_no_jax():
         "ray_tpu_torch.parallel, ray_tpu_torch.parallel.mesh, ray_tpu_torch.parallel.sharding, "
         "ray_tpu_torch.core.errors, ray_tpu_torch.core.faults, ray_tpu_torch.util.net, "
         "ray_tpu_torch.experimental.transfer, ray_tpu_torch.llm.disagg, "
-        "ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.sharded_checkpoint\n"
+        "ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.sharded_checkpoint, "
+        "ray_tpu_torch.core.api, ray_tpu_torch.core.core_worker, ray_tpu_torch.core.node, "
+        "ray_tpu_torch.core.gcs, ray_tpu_torch.core.worker_main, ray_tpu_torch.util\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')]\n"
         "assert not bad, bad\n"
         "from ray_tpu_torch.ops import _build\n"
         "assert not _build._libs\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert r.returncode == 0, r.stderr
+
+
+def test_package_import_is_light_and_the_runtime_loads_lazily():
+    code = (
+        "import sys, ray_tpu_torch\n"
+        "assert 'torch' not in sys.modules and 'ray_tpu_torch.core.api' not in sys.modules\n"
+        "ray_tpu_torch.remote\n"
+        "assert 'ray_tpu_torch.core.api' in sys.modules\n"
+        "assert 'torch' not in sys.modules, 'the runtime imports torch only for a tensor'\n"
+        "assert sorted(ray_tpu_torch.__all__) == sorted(ray_tpu_torch._CORE_API)\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
