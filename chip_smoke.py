@@ -186,6 +186,30 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    step. After ``shutdown()`` no worker process may survive and
    ``nvidia-smi`` may list none as a compute app. Printed as one
    ``{"runtime": ...}`` line with the host copy path ``_native`` took.
+18. The train tier (``train_loop``), in phase 17's session before its
+   ``shutdown()``: ``TorchTrainer(...).fit()`` as a user calls it. Case 1:
+   one worker (``resources_per_worker={"GPU": 1}``, ``TorchConfig()``:
+   NCCL at world size 1, ``FailureConfig(max_failures=1)``) trains phase
+   10's GPT-2-125M ([8, 1024], ``remat="mlp"``, seeds 0 and 1) six steps,
+   its batches pinned on the host and staged through
+   ``DevicePrefetchIterator`` (depth 2), each step's loss reported as a
+   CUDA tensor through the async ring (depth 4), the state saved with
+   ``report(sharded_state=...)`` at steps 3 and 6. Its first attempt raises
+   after step 3; the controller rebuilds the group and the train fn
+   resumes from ``get_checkpoint()`` through ``load_sharded_state``. The
+   history must hold steps 1-6 once each, in order; the losses within the
+   training tolerance of the same six steps run in this process (their bit
+   equality printed); 12 + 12 launches every step, counted in the worker;
+   the final checkpoint, restored whole on the host, with each leaf's
+   digest the one the worker took. Case 2: two workers sharing the card
+   (``{"GPU": 0.5}`` each, ``TorchConfig(backend="gloo")``) take two steps
+   of GPT-2-125M under ``MeshSpec(dp=2)`` ([16, 1024]) and save the state:
+   both ranks' loss and gradient norm within the training tolerances of
+   ``train_shard``'s unsharded dp2 step, the checkpoint restored whole,
+   and a third ``GPU`` demand waits while the group holds the card. The
+   fit times, the first worker's start, the rebuild and each attempt's
+   ring readbacks and ``train`` phases are printed as one
+   ``{"train_loop": ...}`` line.
 
 Telemetry stays on (``GLOBAL_CONFIG`` of :mod:`ray_tpu_torch.core.config`)
 for every phase but the A/B's "off" arm.
@@ -210,6 +234,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import weakref
 from pathlib import Path
@@ -2280,8 +2305,11 @@ def live_workers(pids) -> list[int]:
     return sorted(set(alive))
 
 
-def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cuda") -> dict:
-    """The core runtime on the card (see the module docstring, phase 17)."""
+def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cuda",
+                 dp2_ref: dict | None = None) -> dict:
+    """The core runtime on the card (see the module docstring, phase 17),
+    then the train tier in the same session (``out["train_loop"]``, see
+    :func:`train_loop`), so the no-survivor check covers its workers."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import _native
     from ray_tpu_torch.core import api as rt_api
@@ -2392,6 +2420,13 @@ def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cud
         out["train_task"] = dict(tr, train_loss=l_d, train_grad_norm=n_d, train_step_loss=step_d,
                                  bit_equal=dict(loss=tr["loss"] == l_d, grad_norm=tr["grad_norm"] == n_d,
                                                 step_loss=tr["step_loss"] == step_d))
+        # The train tier: TorchTrainer fits in this session.
+        t_loop = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            loop = train_loop(rt, device, tmp, dp2_ref)
+        loop["phase_s"] = time.perf_counter() - t_loop
+        pids.update(loop.pop("pids"))
+        out["train_loop"] = loop
         for node in rt_api._runtime.nodes:
             pids.update(w.proc.pid for w in node.workers.values() if w.proc is not None)
     finally:
@@ -2409,6 +2444,267 @@ def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cud
     out["launches"] = {"flash_fwd": res["launches"]["flash_fwd"] + tr["launches"]["flash_fwd"],
                        "flash_bwd": res["launches"]["flash_bwd"] + tr["launches"]["flash_bwd"]}
     out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# The train tier on the card (train_loop): TorchTrainer.fit over the port's
+# runtime, inside the runtime phase's session. Case 1: one worker on the
+# card trains GPT-2-125M LOOP_STEPS steps, batches through the device
+# prefetch iterator, each loss reported as a CUDA tensor through the async
+# ring, the state saved sharded at LOOP_CKPT_STEPS; its first attempt
+# fails after LOOP_FAIL_AFTER and the rebuilt group resumes from the
+# checkpoint. Case 2: two workers sharing the card over gloo, dp=2.
+LOOP_STEPS = 6
+LOOP_FAIL_AFTER = 3
+LOOP_CKPT_STEPS = (LOOP_FAIL_AFTER, LOOP_STEPS)
+LOOP_RING_DEPTH = 4
+LOOP_PREFETCH_DEPTH = 2
+LOOP_DP2_STEPS = 2
+LOOP_TIMEOUT_S = 600
+LOOP_GPU_HELD_S = 120  # the dp=2 group must hold the GPU resource within this
+
+
+def loop_batches(cfg, rows: int, n: int, pin: bool) -> list:
+    """``n`` host batches of [rows, max_seq] tokens drawn in turn from phase
+    10's batch seed (1) on the CPU, pinned where there is a card."""
+    g = torch.Generator().manual_seed(1)
+    out = []
+    for _ in range(n):
+        tokens = torch.randint(0, cfg.vocab_size, (rows, cfg.max_seq), generator=g)
+        batch = {"tokens": tokens, "targets": tokens.roll(-1, dims=1)}
+        out.append({k: v.pin_memory() for k, v in batch.items()} if pin else batch)
+    return out
+
+
+def state_digests(state) -> dict:
+    """sha1 of each tensor leaf's bytes (on the host), by its path."""
+    import hashlib
+
+    out = {}
+    for key, leaf, _ in sharded_checkpoint._flatten(sharded_checkpoint._tree_of(state), None):
+        if isinstance(leaf, torch.Tensor):
+            raw = leaf.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy()
+            out[key] = hashlib.sha1(raw).hexdigest()
+    return out
+
+
+def loop_train_fn(config):
+    """Case 1's train loop, in the worker (TorchTrainer's train fn): resume
+    from the checkpoint where there is one, then one report a step with the
+    loss as a CUDA tensor, the step's launches (counted in this process,
+    zeroed just before the step and read just after) and the wall clock."""
+    import ray_tpu_torch.train as rtrain
+    from ray_tpu_torch.train import torch_backend
+
+    t_entry = time.time()
+    dev = torch_backend.train_device()
+    cfg = train_config()
+    model, _, opt, state = train_setup(dev, cfg)
+    ckpt = rtrain.get_checkpoint()
+    start = 0
+    if ckpt is not None:
+        state = rtrain.load_sharded_state(ckpt, sharded_checkpoint.restore_template(state))
+        start = state["step"]
+    step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=cfg), opt)
+    batches = loop_batches(cfg, TRAIN_B, LOOP_STEPS, pin=dev.type == "cuda")[start:]
+    flightrec.reset()
+    feed = rtrain.DevicePrefetchIterator(iter(batches), depth=LOOP_PREFETCH_DEPTH, device=dev)
+    for i, batch in enumerate(feed, start=start + 1):
+        attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the step
+        state, m = step(state, batch)
+        rec = {"step": i, "loss": m["loss"], "attempt": 1 if ckpt is None else 2,
+               "flash_fwd": attention.flash_fwd_launches,  # read just after
+               "flash_bwd": attention.flash_bwd_launches, "t": time.time(), "pid": os.getpid()}
+        if i == start + 1:
+            rec.update(t_entry=t_entry, device=str(dev),
+                       resumed_from=os.path.basename(ckpt.path) if ckpt is not None else None)
+        rtrain.report(rec, sharded_state=state if i in LOOP_CKPT_STEPS else None)
+        if ckpt is None and i == LOOP_FAIL_AFTER:
+            loop_record(rec["attempt"])
+            raise RuntimeError(f"injected failure after step {i} (first attempt)")
+    loop_record(rec["attempt"], digests=state_digests(state))
+
+
+def loop_record(attempt: int, **extra) -> None:
+    """This worker's record of its attempt, written beside the run's
+    checkpoints once its last report is in (the worker ends with the
+    attempt): the ring's host-blocked readbacks
+    (``raytpu_train_host_blocked_seconds``), the ``train`` ring's phases,
+    the peak memory, and ``extra`` (the last attempt's state digests)."""
+    import ray_tpu_torch.train as rtrain
+
+    ctx = rtrain.get_context()
+    ctx.flush()
+    points = {(n, frozenset(t.items())): v for n, t, v in metrics.registry().snapshot()["points"]}
+    ring = flightrec.snapshot(planes=["train"])["rings"].get("train", {"events": []})
+    record = dict(host_blocked=hist_summary("raytpu_train_host_blocked_seconds", points, {}),
+                  phases=phase_ms(ring["events"]), peak_mem_gb=peak_gb(), **extra)
+    with open(os.path.join(ctx.storage.experiment_dir, f"attempt_{attempt}.json"), "w") as f:
+        json.dump(record, f)
+
+
+def loop_dp2_fn(config):
+    """Case 2's train loop, in each of two workers sharing the card over
+    gloo: GPT-2-125M under MeshSpec(dp=2) on the global batch [2 * TRAIN_B,
+    max_seq], the gradient half once (loss, norm) and LOOP_DP2_STEPS steps
+    with the launch counts zeroed just before and read just after; rank 0
+    reports every rank's numbers (gathered), and the state is saved."""
+    import ray_tpu_torch.train as rtrain
+    from ray_tpu_torch.train import torch_backend
+
+    dev = torch_backend.train_device()
+    cfg = train_config()
+    mesh = make_mesh(MeshSpec(dp=2), dev.type)
+    opt = spmd.default_optimizer(warmup_steps=2, total_steps=20)
+    batch = mesh_batch(cfg, 2 * TRAIN_B, dev)
+    step, state, shardings = mesh_setup(cfg, mesh, opt, dev, torch.Generator().manual_seed(0), batch)
+    rec = loss_and_norm(cfg, state["params"], batch, shardings, mesh)
+    attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the steps
+    rec["losses"] = [step(state, batch)[1]["loss"].item() for _ in range(LOOP_DP2_STEPS)]
+    rec["launches"] = {"flash_fwd": attention.flash_fwd_launches,  # read just after
+                       "flash_bwd": attention.flash_bwd_launches}
+    rec.update(pid=os.getpid(), device=str(dev), backend=dist.get_backend(),
+               rank=rtrain.get_context().get_world_rank(), peak_mem_gb=peak_gb())
+    ranks = [None] * dist.get_world_size()
+    dist.all_gather_object(ranks, rec)
+    params = state_digests({"params": state["params"]}) if rec["rank"] == 0 else None
+    rtrain.report({"ranks": ranks, "param_digests": params}, sharded_state=state)
+
+
+def train_loop(rt, device: str, tmp: str, dp2_ref: dict | None = None) -> dict:
+    """The train tier on the card (see the module docstring, phase 17):
+    two TorchTrainer fits in the runtime phase's session, whose cluster has
+    one ``GPU`` unit. ``dp2_ref`` is train_shard's unsharded step at the dp2
+    case's batch (computed here where it is None)."""
+    from ray_tpu_torch.train import (FailureConfig, RunConfig, ScalingConfig, TorchConfig,
+                                     TorchTrainer)
+
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    out, pids = {}, set()
+    saved = (GLOBAL_CONFIG.train_async_dispatch, GLOBAL_CONFIG.train_async_dispatch_depth)
+    GLOBAL_CONFIG.train_async_dispatch, GLOBAL_CONFIG.train_async_dispatch_depth = True, LOOP_RING_DEPTH
+    try:
+        # Case 1: one worker on the card; the first attempt fails after
+        # step LOOP_FAIL_AFTER and the rebuilt group resumes.
+        t0_wall, t0 = time.time(), time.perf_counter()
+        result = TorchTrainer(
+            loop_train_fn,
+            train_loop_config={},
+            scaling_config=ScalingConfig(num_workers=1, resources_per_worker={"GPU": 1}),
+            torch_config=TorchConfig() if cuda else TorchConfig(backend="gloo", device="cpu"),
+            run_config=RunConfig(name="train_loop", storage_path=os.path.join(tmp, "one"),
+                                 failure_config=FailureConfig(max_failures=1)),
+        ).fit()
+        fit_s = time.perf_counter() - t0
+        hist = result.metrics_history
+        assert [m["step"] for m in hist] == list(range(1, LOOP_STEPS + 1)), [m["step"] for m in hist]
+        attempts = [m["attempt"] for m in hist]
+        assert attempts == [1] * LOOP_FAIL_AFTER + [2] * (LOOP_STEPS - LOOP_FAIL_AFTER), attempts
+        assert all(type(m["loss"]) is float and math.isfinite(m["loss"]) for m in hist), hist
+        first, resumed = hist[0], hist[LOOP_FAIL_AFTER]
+        assert resumed["resumed_from"] == f"checkpoint_{LOOP_FAIL_AFTER - 1:06d}", resumed
+        assert os.path.basename(result.checkpoint.path) == f"checkpoint_{LOOP_STEPS - 1:06d}"
+        n_layer = train_config().n_layer  # "mlp" remat: one forward and one backward a layer
+        if cuda:
+            assert all((m["flash_fwd"], m["flash_bwd"]) == (n_layer, n_layer) for m in hist), hist
+            assert first["device"] == resumed["device"] == "cuda:0", (first, resumed)
+        pids.update(m["pid"] for m in hist)
+        assert len({first["pid"], resumed["pid"]}) == 2, "the rebuilt group reused the failed worker"
+
+        # The same six steps in this process, from the same seeds and batches.
+        model, _, opt, ref_state = train_setup(dev, train_config())
+        step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=train_config()), opt)
+        ref = [step(ref_state, {k: v.to(dev) for k, v in b.items()})[1]["loss"].item()
+               for b in loop_batches(train_config(), TRAIN_B, LOOP_STEPS, pin=cuda)]
+        losses = [m["loss"] for m in hist]
+        diffs = [abs(a - b) for a, b in zip(losses, ref)]
+        assert max(diffs) <= TRAIN_LOSS_TOL, (losses, ref)
+
+        # The final checkpoint, restored whole on the host: each leaf's
+        # digest the one the worker took of the state it saved.
+        records = [json.loads(Path(result.path, f"attempt_{a}.json").read_text()) for a in (1, 2)]
+        whole = sharded_checkpoint.restore_template(ref_state, device="cpu")
+        restored = sharded_checkpoint.load_sharded_state(result.checkpoint, whole)
+        got = state_digests(restored)
+        assert got == records[1].pop("digests"), "the restored checkpoint differs from the saved state"
+        assert restored["step"] == LOOP_STEPS
+        inproc = state_digests(ref_state)
+        del restored, ref_state
+        out["case1"] = dict(
+            model="GPT2Config", batch=[TRAIN_B, train_config().max_seq], steps=LOOP_STEPS,
+            remat=train_config().remat, ring_depth=LOOP_RING_DEPTH,
+            prefetch_depth=LOOP_PREFETCH_DEPTH, losses=losses, inprocess_losses=ref,
+            max_loss_diff=max(diffs), loss_tol=TRAIN_LOSS_TOL,
+            losses_bit_equal=losses == ref, state_bit_equal_inprocess=got == inproc,
+            attempts=attempts, failed_after=LOOP_FAIL_AFTER, resumed_from=resumed["resumed_from"],
+            final_checkpoint=os.path.basename(result.checkpoint.path), digests_equal=True,
+            launches_per_step={"flash_fwd": first["flash_fwd"], "flash_bwd": first["flash_bwd"]},
+            fit_s=fit_s, first_worker_start_s=first["t_entry"] - t0_wall,
+            rebuild_s=resumed["t_entry"] - hist[LOOP_FAIL_AFTER - 1]["t"],
+            step_wall_s=[b["t"] - a["t"] for a, b in zip(hist, hist[1:])],
+            worker_telemetry=records,
+        )
+        launches = {"flash_fwd": sum(m["flash_fwd"] for m in hist),
+                    "flash_bwd": sum(m["flash_bwd"] for m in hist)}
+        out["launches"] = launches
+        log("train_loop case1", json.dumps(out["case1"]))
+        if cuda:
+            torch.cuda.empty_cache()
+
+        # Case 2: two workers sharing the card over gloo, dp=2. While they
+        # hold the GPU resource, a third demand waits.
+        box = {}
+        t0 = time.perf_counter()
+        fit = TorchTrainer(
+            loop_dp2_fn,
+            train_loop_config={},
+            scaling_config=ScalingConfig(num_workers=2, resources_per_worker={"GPU": 0.5}),
+            torch_config=TorchConfig(backend="gloo", device=device),
+            run_config=RunConfig(name="train_loop_dp2", storage_path=os.path.join(tmp, "dp2")),
+        )
+        th = threading.Thread(target=lambda: box.setdefault("result", fit.fit()), daemon=True)
+        th.start()
+        deadline = time.perf_counter() + LOOP_GPU_HELD_S
+        while rt.available_resources().get("GPU", 0.0) > 0.0 and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        held_s = time.perf_counter() - t0
+        probe = rt.remote(num_gpus=0.5)(runtime_probe).remote()
+        ready, _ = rt.wait([probe], timeout=RUNTIME_WAIT_S)
+        th.join(LOOP_TIMEOUT_S)
+        assert not th.is_alive() and "result" in box, "the dp=2 fit did not finish"
+        fit2_s = time.perf_counter() - t0
+        pids.add(rt.get(probe, timeout=RUNTIME_TIMEOUT_S))
+        accounting = dict(gpu_held_after_s=held_s, waited_while_held=not ready, wait_s=RUNTIME_WAIT_S,
+                          ran_after_fit=True)
+        assert held_s < LOOP_GPU_HELD_S, "the dp=2 group never held the GPU resource"
+        assert accounting["waited_while_held"], "a GPU demand ran while the dp=2 group held it"
+        result2 = box["result"]
+        ranks = result2.metrics["ranks"]
+        want = dp2_ref or unsharded_step(train_config(), 2 * TRAIN_B, dev)
+        for r in ranks:
+            assert abs(r["loss"] - want["loss"]) <= TRAIN_LOSS_TOL, (r, want)
+            assert abs(r["gnorm"] - want["gnorm"]) / want["gnorm"] <= TRAIN_GNORM_TOL, (r, want)
+            assert all(math.isfinite(x) for x in r["losses"]), r
+            if cuda:
+                assert r["launches"] == {"flash_fwd": LOOP_DP2_STEPS * n_layer,
+                                         "flash_bwd": LOOP_DP2_STEPS * n_layer}, r
+                assert (r["device"], r["backend"]) == ("cuda:0", "gloo"), r
+        pids.update(r["pid"] for r in ranks)
+        restored = sharded_checkpoint.load_sharded_state(result2.checkpoint, whole)
+        assert state_digests({"params": restored["params"]}) == result2.metrics["param_digests"]
+        assert restored["step"] == LOOP_DP2_STEPS
+        del restored
+        out["case2"] = dict(
+            mesh=dict(dp=2), batch=[2 * TRAIN_B, train_config().max_seq], backend="gloo",
+            ranks=ranks, unsharded=dict(loss=want["loss"], gnorm=want["gnorm"]),
+            restored_whole=True, fit_s=fit2_s, gpu_accounting=accounting,
+        )
+        out["launches_dp2"] = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+        log("train_loop case2", json.dumps(out["case2"]))
+    finally:
+        GLOBAL_CONFIG.train_async_dispatch, GLOBAL_CONFIG.train_async_dispatch_depth = saved
+    out["pids"] = sorted(pids)
     return out
 
 
@@ -2537,7 +2833,9 @@ def main() -> int:
             print(json.dumps({"spec": spec}), flush=True)
     torch.cuda.empty_cache()
 
-    runtime = runtime_path(card, serve_run, train)
+    runtime = runtime_path(card, serve_run, train, dp2_ref=shard_run["cases"]["dp2"]["unsharded"])
+    loop = runtime.pop("train_loop")
+    print(json.dumps({"train_loop": loop}), flush=True)
     print(json.dumps({"runtime": runtime}), flush=True)
 
     fwd_head = next(
@@ -2554,7 +2852,9 @@ def main() -> int:
                         "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_fwd"],
                         "train_shard_ckpt": shard_run["launches_ckpt"]["flash_fwd"],
                         **{k: f for k, (f, _) in spec_launches.items()},
-                        "runtime": runtime["launches"]["flash_fwd"]},
+                        "runtime": runtime["launches"]["flash_fwd"],
+                        "train_loop": loop["launches"]["flash_fwd"],
+                        "train_loop_dp2": loop["launches_dp2"]["flash_fwd"]},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
     bwd = kernel_entry("flash_bwd", built, bwd_rows, bwd_head,
@@ -2567,7 +2867,9 @@ def main() -> int:
                         "train_shard_sp_pp": shard_run["launches_sp_pp"]["flash_bwd"],
                         "train_shard_ckpt": shard_run["launches_ckpt"]["flash_bwd"],
                         **{k: b for k, (_, b) in spec_launches.items()},
-                        "runtime": runtime["launches"]["flash_bwd"]},
+                        "runtime": runtime["launches"]["flash_bwd"],
+                        "train_loop": loop["launches"]["flash_bwd"],
+                        "train_loop_dp2": loop["launches_dp2"]["flash_bwd"]},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)

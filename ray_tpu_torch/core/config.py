@@ -10,8 +10,9 @@ The port's table holds the fields its modules read, with the reference's
 names, defaults and ``RAY_TPU_<NAME>`` parsing: the core runtime's knobs,
 the telemetry switches (``metrics_enabled``, ``flightrec*``,
 ``tracing_enabled``), ``spec_decode``, ``faults`` (parsed at import by
-:mod:`ray_tpu_torch.core.faults`) and ``xfer_armed_cap`` (the transfer
-fabric's armed-entry cap). Tests flip a field on ``GLOBAL_CONFIG`` and
+:mod:`ray_tpu_torch.core.faults`), ``xfer_armed_cap`` (the transfer
+fabric's armed-entry cap) and the train tier's ``storage_path``,
+``train_*`` and ``elastic_*`` knobs. Tests flip a field on ``GLOBAL_CONFIG`` and
 restore it.
 """
 
@@ -208,6 +209,43 @@ class Config:
     # Transfer-fabric armed-array cap (RAY_TPU_XFER_ARMED_CAP): staged
     # device arrays kept alive awaiting a pull before LRU eviction.
     xfer_armed_cap: int = 16
+    # Default train results root (RAY_TPU_STORAGE_PATH): used when
+    # RunConfig.storage_path is not given. Empty = ~/ray_tpu_results.
+    storage_path: str = ""
+    # Host-free train steps. With async dispatch on, TrainContext.report()
+    # of a DEVICE-RESIDENT metrics tree (CUDA tensors) enqueues it into a
+    # bounded ring, its device->host copy started on a side stream,
+    # instead of waiting for the readback: up to
+    # train_async_dispatch_depth steps of launches stay in flight ahead
+    # of the card, and the host only blocks when a ring slot is evicted
+    # or at checkpoint/flush boundaries. RAY_TPU_TRAIN_ASYNC_DISPATCH=0 is
+    # the kill switch back to the synchronous loop (readback inside every
+    # report()). Metrics surface at most `depth` steps late; checkpoints
+    # flush the ring first.
+    train_async_dispatch: bool = True
+    train_async_dispatch_depth: int = 4
+    # Double-buffered train input: batches are staged on the card (pinned,
+    # copied on a side stream) this many batches ahead of the consuming
+    # step, off the timed path. 0 = hand host batches straight through.
+    train_prefetch_depth: int = 2
+    # Elastic training. ``elastic_train`` is the kill switch
+    # (RAY_TPU_ELASTIC_TRAIN=0): off, a membership change tears the gang
+    # down on a drain notice and rebuilds it from the latest persisted
+    # checkpoint ("preempted", no max_failures burn). On, every rank
+    # pauses at its next step boundary, the state moves peer-to-peer over
+    # the transfer fabric onto the surviving (or joining) ranks, and the
+    # run resumes at the boundary; any failure of that falls back to the
+    # checkpoint-restore path.
+    elastic_train: bool = True
+    # Floor on the post-shrink world size (below it: checkpoint restore).
+    elastic_min_world_size: int = 1
+    # How long the controller waits for every rank to pause.
+    elastic_pause_timeout_s: float = 15.0
+    # Budget for the fabric state transfer (snapshot arm + peer pulls).
+    elastic_reshard_timeout_s: float = 60.0
+    # Scale-up: while below ScalingConfig.num_workers after a shrink, the
+    # controller tries to recruit replacements this often. 0 disables.
+    elastic_grow_check_s: float = 2.0
     # Fleet-scale control plane (round 19). ``sched_index`` is the kill
     # switch (RAY_TPU_SCHED_INDEX=0): off, every placement decision takes
     # the original full-scan pick_node path byte-identically (the A/B

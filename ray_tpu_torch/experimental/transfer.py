@@ -33,7 +33,9 @@ object store registered one, as the reference refunds its store's fetch
 budget. ``release_uuid`` drops one entry (its pull completed, or its
 consumer gave up).
 
-Not ported yet: ``arm_group``/``pull_group``, ``release_armed``,
+:meth:`_Fabric.arm_group` / :meth:`_Fabric.pull_group` move several
+tensors under one uid in one pull (the train tier's elastic plane reshards
+a rank's state with them). Not ported yet: ``release_armed``,
 ``count_fallback`` and the sharding-decomposition helpers, which serve the
 device-object store and multi-world handoffs of the runtime (the
 ``fallbacks`` stat stays 0 until then). A tensor is always staged whole:
@@ -296,6 +298,29 @@ class _Fabric:
             "partitions": partitions,
         }
 
+    def arm_group(self, tensors: Sequence) -> dict:
+        """Stage SEVERAL tensors under ONE uid for one remote pull (one
+        descriptor, one TCP connection). Each member is staged as
+        :meth:`arm` stages one (numpy arrays are taken as tensors); the
+        descriptor carries each member's shape, dtype and source device
+        type, which :meth:`pull_group` checks and the consumer may use to
+        place the members."""
+        members = [t if isinstance(t, torch.Tensor) else torch.as_tensor(t) for t in tensors]
+        staged = [_Staged(t) for t in members]
+        uid = _uuid.uuid4().int >> 65  # 63-bit
+        self._ensure_server().await_pull(uid, staged)
+        self._remember_armed(uid, None, [s.host for s in staged])
+        return {
+            "uuid": uid,
+            "address": self.address(),
+            "specs": [
+                {"shape": tuple(t.shape), "dtype": str(t.dtype).removeprefix("torch."),
+                 "device": t.device.type}
+                for t in members
+            ],
+            "group": True,
+        }
+
     def _remember_armed(self, uid: int, oid, staged: torch.Tensor) -> None:
         """Record one armed entry and run the cap/TTL eviction sweep."""
         evicted, evicted_uids = [], []
@@ -341,6 +366,15 @@ class _Fabric:
         conn = self._connect(desc["address"])
         spec = {"shape": tuple(desc["shape"]), "dtype": desc["dtype"]}
         [out] = conn.pull(desc["uuid"], [spec], device)
+        with self._lock:
+            self._stats["pulls"] += 1
+        return out
+
+    def pull_group(self, desc: dict, device=None) -> list:
+        """Pull an :meth:`arm_group` entry: every member lands on ``device``
+        (the host where None), in the producer's order."""
+        conn = self._connect(desc["address"])
+        out = conn.pull(desc["uuid"], desc["specs"], device)
         with self._lock:
             self._stats["pulls"] += 1
         return out

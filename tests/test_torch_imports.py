@@ -19,6 +19,7 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_seq_pipe_worker.py",
     ROOT / "tests" / "torch_ckpt_worker.py",
     ROOT / "tests" / "test_torch_core_cuda.py",
+    ROOT / "tests" / "test_torch_train_cuda.py",
 ]
 
 
@@ -51,7 +52,10 @@ def test_import_pulls_in_no_jax():
         "ray_tpu_torch.experimental.transfer, ray_tpu_torch.llm.disagg, "
         "ray_tpu_torch.train.checkpoint, ray_tpu_torch.train.sharded_checkpoint, "
         "ray_tpu_torch.core.api, ray_tpu_torch.core.core_worker, ray_tpu_torch.core.node, "
-        "ray_tpu_torch.core.gcs, ray_tpu_torch.core.worker_main, ray_tpu_torch.util\n"
+        "ray_tpu_torch.core.gcs, ray_tpu_torch.core.worker_main, ray_tpu_torch.util, "
+        "ray_tpu_torch.train, ray_tpu_torch.train.trainer, ray_tpu_torch.train.controller, "
+        "ray_tpu_torch.train.worker_group, ray_tpu_torch.train.elastic, "
+        "ray_tpu_torch.util.collective.topology\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')]\n"
         "assert not bad, bad\n"
         "from ray_tpu_torch.ops import _build\n"
