@@ -45,7 +45,7 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    steps), with the flight recorder's summed ``llm`` phase host times of
    the same windows beside the device time.
 7. The telemetry A/B on ``serve`` and ``serve_paged``: the same 6-request
-   traffic with ``metrics_enabled`` and ``flightrec`` off, then on, three
+   traffic with ``metrics_enabled`` and ``flightrec`` off, then on, two
    rounds in turn on one engine, each timed on the host clock and then
    profiled over 24 decode steps. The greedy streams must be identical
    between the arms and the decode device time other than the copies
@@ -210,6 +210,36 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    fit times, the first worker's start, the rebuild and each attempt's
    ring readbacks and ``train`` phases are printed as one
    ``{"train_loop": ...}`` line.
+19. The serve tier (``serve_app``), in phase 17's session after phase 18:
+   ``serve.run(build_openai_app(...))`` as a user deploys it, GPT-2-125M
+   at phase 3's serve shape with seed-0 weights; each replica's callable
+   is ``SmokeLLMServer``, an ``LLMServer`` that also reports the counts of
+   its own process. (a) Unified: one replica holding the ``GPU`` unit on
+   the dense cache; a warm-up, then phase 3's six prompts as text (20,
+   100, 300, 1000, 94 and 114 bytes, the last two sharing a 64-byte
+   prefix; 32 greedy tokens each) POSTed at once from threads to
+   ``/llm/v1/completions`` on ``serve.proxy_port()``, a streamed chat
+   completion and its non-streamed twin, and a ``max_tokens=1`` request.
+   The replica's streams must equal those of an engine of the same fields
+   in this process on the same texts, or first diverge at a near tie
+   within phase 5's bf16 bound; each response's text and count must be
+   its ids'; the streamed chat, joined, must equal its twin; the
+   replica's flash_fwd launches, zeroed just before the traffic and read
+   just after in its process, must be n_layer times its fresh prefills
+   (its requests less its prefix hits), flash_bwd 0. (b) Disaggregated:
+   after ``serve.delete``, one prefill and one decode replica at 0.5 GPU
+   each on the paged cache (``prefill_replicas=1``); the six prompts
+   through a ``DeploymentHandle`` in this process and one over HTTP. The
+   routing table must carry the roles, this process's
+   ``raytpu_serve_disagg_handoffs_total`` must rise by one a handle
+   request, the decode replica must prefill nothing and both replicas
+   fall back never and launch nothing; the decode replica's streams are
+   held to an in-process paged engine's as in (a). Then, with
+   ``GLOBAL_CONFIG.disagg`` off in this process, one request must be
+   answered with no handoff counted. Each replica's start, peak memory
+   and engine step time, the HTTP latencies, the streamed chat's first
+   byte and the tokens per second over HTTP are printed as one
+   ``{"serve_app": ...}`` line, with the card line.
 
 Telemetry stays on (``GLOBAL_CONFIG`` of :mod:`ray_tpu_torch.core.config`)
 for every phase but the A/B's "off" arm.
@@ -231,11 +261,13 @@ import os
 import pickle
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import tempfile
 import threading
 import time
+import urllib.request
 import weakref
 from pathlib import Path
 
@@ -247,7 +279,8 @@ import torch.nn.functional as F
 from ray_tpu_torch.core import faults
 from ray_tpu_torch.core.config import GLOBAL_CONFIG
 from ray_tpu_torch.experimental import transfer as ptransfer
-from ray_tpu_torch.llm import LLMConfig, LLMEngine, SamplingParams, build_llm_processor
+from ray_tpu_torch.llm import (ByteTokenizer, LLMConfig, LLMEngine, LLMServer, SamplingParams,
+                               build_llm_processor, build_openai_app)
 from ray_tpu_torch.llm import batch as llm_batch
 from ray_tpu_torch.models import common, gpt2, llama, paged
 from ray_tpu_torch.models.llama import LlamaConfig
@@ -304,7 +337,7 @@ KERNELS = ("flash_fwd", "flash_bwd")
 # copies: the logits readback to pageable memory is staged through the
 # host, and its recorded duration follows the host (3.9 to 9.2 ms in a
 # window whose other device time held within 1 %).
-AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 3, 24, 0.03
+AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 2, 24, 0.03
 BATCH_PROMPTS = ["The quick brown fox", "Hello, world", "ray_tpu on the H100", "batch inference"]
 
 
@@ -2306,10 +2339,12 @@ def live_workers(pids) -> list[int]:
 
 
 def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cuda",
-                 dp2_ref: dict | None = None) -> dict:
+                 dp2_ref: dict | None = None, stream_bound: float = 0.0) -> dict:
     """The core runtime on the card (see the module docstring, phase 17),
-    then the train tier in the same session (``out["train_loop"]``, see
-    :func:`train_loop`), so the no-survivor check covers its workers."""
+    then the train tier (``out["train_loop"]``, see :func:`train_loop`) and
+    the serve tier (``out["serve_app"]``, see :func:`serve_app`; streams
+    held to ``stream_bound``, phase 5's bf16 noise) in the same session, so
+    the no-survivor check covers their workers."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import _native
     from ray_tpu_torch.core import api as rt_api
@@ -2427,6 +2462,8 @@ def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cud
         loop["phase_s"] = time.perf_counter() - t_loop
         pids.update(loop.pop("pids"))
         out["train_loop"] = loop
+        # The serve tier: build_openai_app deployed with serve.run.
+        out["serve_app"] = serve_app(rt, card, device, stream_bound, pids)
         for node in rt_api._runtime.nodes:
             pids.update(w.proc.pid for w in node.workers.values() if w.proc is not None)
     finally:
@@ -2708,6 +2745,305 @@ def train_loop(rt, device: str, tmp: str, dp2_ref: dict | None = None) -> dict:
     return out
 
 
+# The serve tier on the card (serve_app): build_openai_app deployed with
+# serve.run, as a user deploys it, inside the runtime phase's session. The
+# traffic is phase 3's six prompts as text (the endpoint takes text); the
+# replica's own counts are read in its process through SmokeLLMServer.
+SERVE_APP_TIMEOUT_S = 300
+SERVE_APP_WARMUP = "a warm-up request for the serving replica"
+SERVE_APP_ONE = "x"  # the max_tokens=1 request (tests/test_llm.py:219-222)
+
+
+def serve_app_texts(seed: int = 0) -> dict:
+    """Phase 3's six prompts as text: 20, 100, 300, 1000, 94 and 114 bytes of
+    seeded lowercase letters and spaces, the last two sharing a 64-byte
+    prefix."""
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz     "))
+    text = lambda n: "".join(rng.choice(letters, n))  # noqa: E731
+    prefix = text(64)
+    return {"p20": text(20), "p100": text(100), "p300": text(300), "p1000": text(1000),
+            "shared_a": prefix + text(30), "shared_b": prefix + text(50)}
+
+
+class SmokeLLMServer(LLMServer):
+    """``LLMServer`` as ``build_openai_app`` deploys it, plus what this script
+    reads in the replica's own process (launch counts are per process): its
+    pid, card and peak memory, the kernels' launch counts and its engine's
+    counters (zeroed on request), its fresh dense prefills, the host time of
+    each engine step (admissions included) and the prompt and token ids of
+    every request it finished. Serving is LLMServer's."""
+
+    def __init__(self, config, *, device="cuda"):
+        super().__init__(config, device=device)
+        self.ready_wall = time.time()
+        self.fresh_prefills, self.finished_ids, self.stats0 = 0, [], dict(self.engine.stats)
+        self.step_s = []
+        fresh = self.engine._prefill_impl
+
+        def counted(*a, **kw):
+            self.fresh_prefills += 1
+            return fresh(*a, **kw)
+
+        self.engine._prefill_impl = counted
+
+    def _step_with_admissions(self):
+        t0 = time.perf_counter()
+        finished, more = super()._step_with_admissions()
+        self.step_s.append(time.perf_counter() - t0)
+        self.finished_ids += [(list(r.prompt), list(r.generated)) for r in finished]
+        return finished, more
+
+    def zero_counts(self) -> int:
+        attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the path
+        self.fresh_prefills, self.finished_ids, self.stats0 = 0, [], dict(self.engine.stats)
+        self.step_s = []
+        return os.getpid()
+
+    def counts(self) -> dict:
+        stats = {k: v - self.stats0.get(k, 0) for k, v in self.engine.stats.items()}
+        return dict(pid=os.getpid(), device=str(self.engine.device), card=card_name(),
+                    ready_wall=self.ready_wall, peak_mem_gb=peak_gb(), paged=self.engine.paged,
+                    launches={"flash_fwd": attention.flash_fwd_launches,  # read just after
+                              "flash_bwd": attention.flash_bwd_launches},
+                    fresh_prefills=self.fresh_prefills, stats=stats, finished=self.finished_ids,
+                    steps=len(self.step_s), step_ms_median=1e3 * median(self.step_s) if self.step_s else 0.0,
+                    step_s_total=sum(self.step_s))
+
+
+def smoke_app(config, name: str, device: str, **kw):
+    """``build_openai_app``'s deployment, options and bound arguments, with
+    SmokeLLMServer as its callable."""
+    from ray_tpu_torch.serve.api import Deployment
+
+    app = build_openai_app(config, name=name, device=device, **kw)
+    return Deployment(SmokeLLMServer, app.deployment._config).bind(*app.args, **app.kwargs)
+
+
+def replica_call(rt, replica, method: str):
+    """Call a method of one replica's callable through its actor."""
+    from ray_tpu_torch.core import serialization
+
+    payload = serialization.dumps(((), {}))[0]
+    return rt.get(replica.handle.remote(method, payload), timeout=SERVE_APP_TIMEOUT_S)
+
+
+def routing(rt, name: str) -> dict:
+    ctrl = rt.get_actor("serve::controller")
+    return rt.get(ctrl.get_routing.remote(name, -1), timeout=60)
+
+
+def http_post(port: int, path: str, body: dict) -> tuple[dict, float]:
+    t0 = time.perf_counter()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"}, method="POST")
+    with urllib.request.urlopen(req, timeout=SERVE_APP_TIMEOUT_S) as r:
+        out = json.loads(r.read())
+    return out, time.perf_counter() - t0
+
+
+def http_sse(port: int, path: str, body: dict) -> tuple[list, float, float]:
+    """The SSE events of one streamed request, the seconds to the first
+    event and to ``[DONE]``."""
+    payload = json.dumps(body).encode()
+    t0 = time.perf_counter()
+    first, buf = None, b""
+    with socket.create_connection(("127.0.0.1", port), timeout=SERVE_APP_TIMEOUT_S) as sock:
+        sock.sendall(f"POST {path} HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: application/json\r\n"
+                     f"Content-Length: {len(payload)}\r\nConnection: close\r\n\r\n".encode() + payload)
+        while data := sock.recv(65536):
+            buf += data
+            if first is None and b"data: " in buf:
+                first = time.perf_counter() - t0
+    total = time.perf_counter() - t0
+    head, _, rest = buf.partition(b"\r\n\r\n")
+    assert b"200 OK" in head.splitlines()[0], head
+    events = [e.decode().strip() for e in rest.split(b"\n\n") if e.strip()]
+    assert events[-1] == "data: [DONE]", events[-3:]
+    return [json.loads(e[len("data: "):]) for e in events[:-1]], first, total
+
+
+def served_streams(counts: dict, prompts: dict, tokenizer) -> dict:
+    """The replica's token ids for each named prompt."""
+    by_prompt = {tuple(p): g for p, g in counts["finished"]}
+    return {name: by_prompt[tuple(tokenizer.encode(text))] for name, text in prompts.items()}
+
+
+def check_text(body: dict, ids: list, tokenizer) -> None:
+    """A completion's text and count are those of the replica's ids."""
+    text = tokenizer.decode([t for t in ids if t != tokenizer.eos_id])
+    assert body["choices"][0]["text"] == text, (body, ids)
+    assert body["usage"]["completion_tokens"] == len(ids), (body, ids)
+
+
+def reference_streams(fields: dict, prompts: dict, tokenizer) -> dict:
+    """The same texts through an engine of the same fields in this process:
+    its streams and the f32 logits of every position it sampled."""
+    engine = build_engine(fields)
+    logits_at = record_sampled_logits(engine)
+    ids = {name: tokenizer.encode(text) for name, text in prompts.items()}
+    run = drive(engine, ids, SamplingParams(max_tokens=MAX_TOKENS))
+    out = dict(streams=run["streams"], logits_at=logits_at, n_layer=engine.model_config.n_layer)
+    del engine
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return out
+
+
+def handoffs_counted(deployment: str) -> float:
+    return sum(v for n, tags, v in metrics.registry().snapshot()["points"]
+               if n == "raytpu_serve_disagg_handoffs_total" and tags.get("deployment") == deployment)
+
+
+def serve_app(rt, card: str, device: str, stream_bound: float, pids: set) -> dict:
+    """The serve tier on the card (see the module docstring, phase 19), in
+    the runtime phase's session; every replica's pid joins ``pids``."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve import api as serve_api
+
+    t_phase = time.perf_counter()
+    texts = serve_app_texts()
+    tok = ByteTokenizer()
+    out = dict(card=card, prompt_bytes={k: len(v) for k, v in texts.items()})
+    try:
+        # (a) Unified: GPT-2-125M on the dense cache, one replica on the card.
+        t0, t0_wall = time.perf_counter(), time.time()
+        serve.run(smoke_app(LLMConfig(seed=0, kv_block_size=0, placement={"num_cpus": 1, "num_gpus": 1}),
+                            "llm", device), wait_timeout_s=SERVE_APP_TIMEOUT_S)
+        deploy_s = time.perf_counter() - t0
+        (replica,) = routing(rt, "llm")["replicas"]
+        port = serve_api.proxy_port()
+        http_post(port, "/llm/v1/completions", {"prompt": SERVE_APP_WARMUP, "max_tokens": 2})
+        pids.add(replica_call(rt, replica, "zero_counts"))
+        bodies, latency = {}, {}
+
+        def fire(name):
+            bodies[name], latency[name] = http_post(
+                port, "/llm/v1/completions", {"prompt": texts[name], "max_tokens": MAX_TOKENS})
+
+        threads = [threading.Thread(target=fire, args=(name,)) for name in texts]
+        t0 = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(SERVE_APP_TIMEOUT_S)
+        batch_s = time.perf_counter() - t0
+        assert set(bodies) == set(texts), sorted(bodies)
+        chat = {"messages": [{"role": "user", "content": texts["p100"]}], "max_tokens": MAX_TOKENS}
+        chunks, ttfb_s, stream_s = http_sse(port, "/llm/v1/chat/completions", dict(chat, stream=True))
+        whole, chat_s = http_post(port, "/llm/v1/chat/completions", chat)
+        one, one_s = http_post(port, "/llm/v1/completions", {"prompt": SERVE_APP_ONE, "max_tokens": 1})
+        counts = replica_call(rt, replica, "counts")
+        pids.add(counts["pid"])
+
+        streamed = "".join(c["choices"][0]["delta"].get("content", "") for c in chunks)
+        assert streamed == whole["choices"][0]["message"]["content"], (streamed, whole)
+        assert chunks[-1]["choices"][0]["finish_reason"] == "stop", chunks[-1]
+        assert one["usage"]["completion_tokens"] == 1, one
+        streams = served_streams(counts, texts, tok)
+        for name in texts:
+            check_text(bodies[name], streams[name], tok)
+        ref = reference_streams(dict(kv_block_size=0), texts, tok)
+        divergences = compare_streams(ref, {"streams": streams}, stream_bound)
+        hits = counts["stats"]["prefix_hits"]
+        fresh = counts["fresh_prefills"]
+        assert fresh >= 1 and fresh == len(counts["finished"]) - hits, (fresh, len(counts["finished"]), hits)
+        assert counts["launches"] == {"flash_fwd": ref["n_layer"] * fresh, "flash_bwd": 0}, counts["launches"]
+        if device == "cuda":
+            assert counts["device"] == "cuda:0" and counts["card"] == torch.cuda.get_device_name(0), counts
+        generated = sum(b["usage"]["completion_tokens"] for b in bodies.values())
+        out["unified"] = dict(
+            model="GPT2Config", paged=False, slots=16, max_seq=2048, deploy_s=deploy_s,
+            replica_start_s=counts["ready_wall"] - t0_wall, replica_pid=counts["pid"],
+            replica_device=counts["device"], replica_peak_mem_gb=counts["peak_mem_gb"],
+            http_latency_s=latency, batch_wall_s=batch_s, http_tok_s=generated / batch_s,
+            stream_ttfb_s=ttfb_s, stream_s=stream_s, chat_s=chat_s, max_tokens_1_s=one_s,
+            generated=generated, fresh_prefills=fresh, prefix_hits=hits,
+            requests=len(counts["finished"]), launches=counts["launches"],
+            replica_steps=counts["steps"], replica_step_ms_median=counts["step_ms_median"],
+            replica_step_s_total=counts["step_s_total"],
+            divergences=divergences, streams_equal=not divergences, streaming_equal=True)
+        log("serve_app unified", json.dumps(out["unified"]))
+        serve.delete("llm")
+
+        # (b) Disaggregated: GPT-2-125M on the paged cache, one prefill and
+        # one decode replica sharing the card.
+        t0, t0_wall = time.perf_counter(), time.time()
+        h = serve.run(smoke_app(LLMConfig(seed=0, placement={"num_cpus": 1, "num_gpus": 0.5}), "dllm",
+                                device, num_replicas=1, prefill_replicas=1),
+                      wait_timeout_s=SERVE_APP_TIMEOUT_S)
+        deploy_s = time.perf_counter() - t0
+        table = routing(rt, "dllm")
+        roles = table["disagg"]["roles"]
+        assert sorted(roles.values()) == ["decode", "prefill"], roles
+        by_role = {roles[r._actor_id]: r for r in table["replicas"]}
+
+        def ask(prompt, max_tokens=MAX_TOKENS):
+            return h.remote({"path": "/dllm/v1/completions",
+                             "body": {"prompt": prompt, "max_tokens": max_tokens}})
+
+        ask(SERVE_APP_WARMUP, 2).result(timeout=SERVE_APP_TIMEOUT_S)
+        for r in by_role.values():
+            pids.add(replica_call(rt, r, "zero_counts"))
+        h0 = handoffs_counted("dllm")
+        t0 = time.perf_counter()
+        futs = {name: ask(text) for name, text in texts.items()}
+        dbodies = {name: f.result(timeout=SERVE_APP_TIMEOUT_S) for name, f in futs.items()}
+        dbatch_s = time.perf_counter() - t0
+        handoffs = handoffs_counted("dllm") - h0
+        assert handoffs == len(texts), handoffs  # one a handle request
+        via_http, dhttp_s = http_post(port, "/dllm/v1/completions",
+                                      {"prompt": texts["p300"], "max_tokens": MAX_TOKENS})
+        dcounts = {role: replica_call(rt, r, "counts") for role, r in by_role.items()}
+        pids.update(c["pid"] for c in dcounts.values())
+        dec, pre = dcounts["decode"], dcounts["prefill"]
+        assert dec["stats"]["prefill_tokens"] == 0, dec["stats"]  # the decode tier never prefilled
+        assert dec["stats"]["handoffs_in"] == len(texts) + 1, dec["stats"]
+        assert dec["stats"]["kv_fallbacks"] == pre["stats"]["kv_fallbacks"] == 0, (dec["stats"], pre["stats"])
+        for c in (dec, pre):
+            assert c["paged"] and c["launches"] == {"flash_fwd": 0, "flash_bwd": 0}, c["launches"]
+        dstreams = served_streams(dec, texts, tok)
+        for name in texts:
+            check_text(dbodies[name], dstreams[name], tok)
+        check_text(via_http, dstreams["p300"], tok)
+        dref = reference_streams(dict(), texts, tok)
+        ddivergences = compare_streams(dref, {"streams": dstreams}, stream_bound)
+
+        # The kill switch: one flag in this process, and its router no
+        # longer takes the two-hop.
+        saved = GLOBAL_CONFIG.disagg
+        GLOBAL_CONFIG.disagg = False
+        try:
+            off = ask(texts["p20"]).result(timeout=SERVE_APP_TIMEOUT_S)
+            assert off["object"] == "text_completion" and off["usage"]["completion_tokens"] >= 1, off
+            assert handoffs_counted("dllm") - h0 == handoffs, "the kill switch took the two-hop"
+        finally:
+            GLOBAL_CONFIG.disagg = saved
+        dgen = sum(b["usage"]["completion_tokens"] for b in dbodies.values())
+        out["disagg"] = dict(
+            model="GPT2Config", paged=True, roles=sorted(roles.values()), deploy_s=deploy_s,
+            replica_start_s={role: c["ready_wall"] - t0_wall for role, c in dcounts.items()},
+            replica_peak_mem_gb={role: c["peak_mem_gb"] for role, c in dcounts.items()},
+            replica_device={role: c["device"] for role, c in dcounts.items()},
+            handle_batch_wall_s=dbatch_s, handle_tok_s=dgen / dbatch_s, http_latency_s=dhttp_s,
+            handoffs=handoffs, handoffs_in=dec["stats"]["handoffs_in"],
+            decode_prefill_tokens=dec["stats"]["prefill_tokens"],
+            prefill_prefill_tokens=pre["stats"]["prefill_tokens"],
+            kv_fallbacks={role: c["stats"]["kv_fallbacks"] for role, c in dcounts.items()},
+            launches={role: c["launches"] for role, c in dcounts.items()},
+            replica_steps={role: c["steps"] for role, c in dcounts.items()},
+            replica_step_ms_median={role: c["step_ms_median"] for role, c in dcounts.items()},
+            divergences=ddivergences, streams_equal=not ddivergences, kill_switch_answered=True)
+        log("serve_app disagg", json.dumps(out["disagg"]))
+        out["launches"] = dict(counts["launches"])
+        out["launches_disagg"] = {k: dec["launches"][k] + pre["launches"][k] for k in KERNELS}
+        serve.delete("dllm")
+    finally:
+        serve.shutdown()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_entry(name, built, rows, head, launches_by_path, replaces) -> dict:
     return {
         "name": name,
@@ -2833,9 +3169,12 @@ def main() -> int:
             print(json.dumps({"spec": spec}), flush=True)
     torch.cuda.empty_cache()
 
-    runtime = runtime_path(card, serve_run, train, dp2_ref=shard_run["cases"]["dp2"]["unsharded"])
+    runtime = runtime_path(card, serve_run, train, dp2_ref=shard_run["cases"]["dp2"]["unsharded"],
+                           stream_bound=bf16_bound)
     loop = runtime.pop("train_loop")
+    app = runtime.pop("serve_app")
     print(json.dumps({"train_loop": loop}), flush=True)
+    print(json.dumps({"serve_app": app}), flush=True)
     print(json.dumps({"runtime": runtime}), flush=True)
 
     fwd_head = next(
@@ -2854,7 +3193,9 @@ def main() -> int:
                         **{k: f for k, (f, _) in spec_launches.items()},
                         "runtime": runtime["launches"]["flash_fwd"],
                         "train_loop": loop["launches"]["flash_fwd"],
-                        "train_loop_dp2": loop["launches_dp2"]["flash_fwd"]},
+                        "train_loop_dp2": loop["launches_dp2"]["flash_fwd"],
+                        "serve_app": app["launches"]["flash_fwd"],
+                        "serve_app_disagg": app["launches_disagg"]["flash_fwd"]},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
     bwd = kernel_entry("flash_bwd", built, bwd_rows, bwd_head,
@@ -2869,7 +3210,9 @@ def main() -> int:
                         **{k: b for k, (_, b) in spec_launches.items()},
                         "runtime": runtime["launches"]["flash_bwd"],
                         "train_loop": loop["launches"]["flash_bwd"],
-                        "train_loop_dp2": loop["launches_dp2"]["flash_bwd"]},
+                        "train_loop_dp2": loop["launches_dp2"]["flash_bwd"],
+                        "serve_app": app["launches"]["flash_bwd"],
+                        "serve_app_disagg": app["launches_disagg"]["flash_bwd"]},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)

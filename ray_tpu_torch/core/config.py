@@ -9,7 +9,8 @@ through the GCS internal config KV so the cluster is consistent.
 The port's table holds the fields its modules read, with the reference's
 names, defaults and ``RAY_TPU_<NAME>`` parsing: the core runtime's knobs,
 the telemetry switches (``metrics_enabled``, ``flightrec*``,
-``tracing_enabled``), ``spec_decode``, ``faults`` (parsed at import by
+``tracing_enabled``), ``spec_decode``, the serve tier's ``prefix_routing*``,
+``admission``, ``disagg`` and ``serve_*`` knobs, ``faults`` (parsed at import by
 :mod:`ray_tpu_torch.core.faults`), ``xfer_armed_cap`` (the transfer
 fabric's armed-entry cap) and the train tier's ``storage_path``,
 ``train_*`` and ``elastic_*`` knobs. Tests flip a field on ``GLOBAL_CONFIG`` and
@@ -134,9 +135,59 @@ class Config:
     # serialization.dumps_oob AND in the frame encoder; smaller ones are
     # pickled in-band (framing overhead beats the copy win).
     oob_min_buffer_bytes: int = 4096
+    # Prefix-affinity serve routing. prefix_routing is the kill switch
+    # (RAY_TPU_PREFIX_ROUTING=0): off, routers never consult replica
+    # prefix-pool digests or fetch replica state — pow-2 plus the
+    # router-local prompt-prefix affinity table runs untouched.
+    # prefix_route_staleness_s bounds how old a router's replica-digest
+    # table may get before a background refresh fires — routing NEVER
+    # blocks on the control plane; within the window it uses whatever it
+    # has (a stale digest costs at most one avoidable re-prefill).
+    prefix_routing: bool = True
+    prefix_route_staleness_s: float = 2.0
+    # Serve overload protection. ``admission`` is the kill switch
+    # (RAY_TPU_ADMISSION=0): off, routing tables carry no admission/shed
+    # state, routers never consult tenant buckets or shed levels, and
+    # replicas accept work exactly as without this tier. The plane itself
+    # is per-deployment OPT-IN (DeploymentConfig.admission_config); these
+    # knobs are the cluster defaults an admission_config inherits where it
+    # leaves fields unset.
+    admission: bool = True
+    # Disaggregated LLM serving. ``disagg`` is the kill switch
+    # (RAY_TPU_DISAGG=0): off, the serve controller advertises no replica
+    # roles and routers never run the prefill->decode two-hop — unified
+    # serving, byte-identical. The plane itself is per-deployment OPT-IN
+    # (build_openai_app prefill_replicas > 0) and requires the paged KV
+    # cache (handoffs ship pool blocks over the transfer fabric).
+    disagg: bool = True
     # Speculative-decoding kill switch (RAY_TPU_SPEC_DECODE=0): off, an
     # engine builds no draft model and every step is the vanilla one.
     spec_decode: bool = True
+    # Default per-replica concurrency budget: the router's saturation-spill
+    # margin and the replica actor's max_concurrency derive from it.
+    serve_max_concurrent: int = 8
+    # Bounded replica queue: an admission-enabled replica fails a request
+    # fast (OverloadedError, reason="queue_full") once its in-flight count
+    # reaches max_concurrent_queries * this factor, instead of queuing
+    # without limit. The router retries exactly once against a different
+    # replica, then sheds. <= 0 disables the bound even for
+    # admission-enabled deployments.
+    serve_queue_cap_factor: float = 2.0
+    # Load-shed watermarks (admission_config defaults): shed level RISES
+    # when the deployment's mean per-replica queue depth crosses
+    # queue_high (or rolling TTFT crosses ttft_high_ms, where replicas
+    # advertise one), and FALLS one level only after the signals sit
+    # below the low watermarks for a hold period — hysteresis, so the
+    # shed state cannot flap at the boundary. ttft 0 = that signal off.
+    serve_shed_queue_high: float = 8.0
+    serve_shed_queue_low: float = 3.0
+    serve_shed_ttft_high_ms: float = 0.0
+    serve_shed_ttft_low_ms: float = 0.0
+    # Tenant-key contract: the request header (HTTP, lower-cased) the
+    # ingress/router derives the admission tenant from; absent header =
+    # the "default" tenant bucket. gRPC callers pass "tenant" in the call
+    # envelope instead.
+    serve_tenant_header: str = "x-raytpu-tenant"
     # Graceful node drain (reference: gcs_service.proto DrainNode + the
     # raylet's graceful-drain deadline). A draining node stops taking new
     # leases, migrates its sole-copy (primary) objects to healthy peers,

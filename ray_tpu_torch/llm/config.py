@@ -8,8 +8,10 @@ caching, chunked prefill and speculative decoding (``spec_decode_tokens``
 with a draft model), and the model id that the batch entry point's engine
 cache keys on, and the tensor-parallel degree (``tensor_parallelism``: the
 engine is then one rank of an SPMD group; see
-:class:`~ray_tpu_torch.llm.engine.LLMEngine`). The reference's replica
-placement arrives with the serve layer that reads it.
+:class:`~ray_tpu_torch.llm.engine.LLMEngine`), and ``placement``, the
+resources each serve replica actor demands (``build_openai_app`` passes
+it as the deployment's ``ray_actor_options``; ``{"num_gpus": 1}`` puts a
+replica on a card of the port's runtime).
 """
 
 from __future__ import annotations
@@ -45,6 +47,8 @@ class LLMConfig:
     # Tensor-parallel degree: > 1 splits the heads, the MLP and the
     # vocabulary over that many ranks of the caller's process group.
     tensor_parallelism: int = 1
+    # Placement: resources each serve replica actor demands.
+    placement: dict = dataclasses.field(default_factory=lambda: {"num_cpus": 1})
     # Initial weights: a path to a pickled params pytree of numpy arrays,
     # or None for random init from ``seed``.
     weights_path: Optional[str] = None

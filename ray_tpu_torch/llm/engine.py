@@ -92,6 +92,7 @@ from __future__ import annotations
 
 import dataclasses
 import pickle
+import sys
 import time as _time
 from collections import deque
 from typing import Optional
@@ -157,14 +158,21 @@ _PREFIX_HIT_RATE = _metrics.Gauge(
     tag_keys=("replica",),
 )
 
-_REPLICA_TAGS = {"replica": "local"}
+_replica_tags_cache: Optional[dict] = None
 
 
 def _replica_tags() -> dict:
-    """Engine-identity gauge tags. The reference tags a replica actor's
-    engine with the actor's truncated id and any other with "local"; the
-    port has no actors yet, so every engine is "local"."""
-    return _REPLICA_TAGS
+    """Engine-identity gauge tags: the hosting actor's truncated id
+    (bounded by live replicas; series vanish with the process's
+    snapshot), or "local" outside an actor (tests, batch inference). Reads
+    the process's attached worker, if any: the probe never starts a
+    runtime."""
+    global _replica_tags_cache
+    if _replica_tags_cache is None:
+        api = sys.modules.get("ray_tpu_torch.core.api")
+        rid = getattr(getattr(api, "_worker", None), "_actor_id", None) or ""
+        _replica_tags_cache = {"replica": rid[:12] or "local"}
+    return _replica_tags_cache
 
 
 def _validate_block_multiple(name: str, value: int, block_size: int) -> None:

@@ -20,6 +20,7 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "torch_ckpt_worker.py",
     ROOT / "tests" / "test_torch_core_cuda.py",
     ROOT / "tests" / "test_torch_train_cuda.py",
+    ROOT / "tests" / "test_torch_serve_cuda.py",
 ]
 
 
@@ -55,8 +56,13 @@ def test_import_pulls_in_no_jax():
         "ray_tpu_torch.core.gcs, ray_tpu_torch.core.worker_main, ray_tpu_torch.util, "
         "ray_tpu_torch.train, ray_tpu_torch.train.trainer, ray_tpu_torch.train.controller, "
         "ray_tpu_torch.train.worker_group, ray_tpu_torch.train.elastic, "
-        "ray_tpu_torch.util.collective.topology\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu')]\n"
+        "ray_tpu_torch.util.collective.topology, ray_tpu_torch.util.prefix_digest, "
+        "ray_tpu_torch.serve, ray_tpu_torch.serve.admission, ray_tpu_torch.serve.api, "
+        "ray_tpu_torch.serve.asgi, ray_tpu_torch.serve.batching, ray_tpu_torch.serve.controller, "
+        "ray_tpu_torch.serve.grpc_ingress, ray_tpu_torch.serve.handle, "
+        "ray_tpu_torch.serve.multiplex, ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.replica, "
+        "ray_tpu_torch.serve.router, ray_tpu_torch.serve.schema, ray_tpu_torch.llm.serve_llm\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'yaml', 'grpc')]\n"
         "assert not bad, bad\n"
         "from ray_tpu_torch.ops import _build\n"
         "assert not _build._libs\n"

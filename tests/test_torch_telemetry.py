@@ -253,7 +253,9 @@ def _check_series(res, spec: bool):
     pmeta = pmetrics.registry().snapshot()["meta"]
     jmeta = jmetrics.registry().snapshot()["meta"]
     names = [n for n in pmeta if n.startswith("raytpu_llm_")]
-    assert len(names) == 12
+    # The engine's 12, and the serving replica's step-time and active-request
+    # series, which each package's llm/serve_llm.py declares on import.
+    assert len(names) == 14
     assert {n: pmeta[n] for n in names} == {n: jmeta[n] for n in names}
     assert pmetrics.runtime_catalog()["raytpu_llm_itl_seconds"] == jmetrics.runtime_catalog()[
         "raytpu_llm_itl_seconds"]
