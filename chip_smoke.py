@@ -45,8 +45,8 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    steps), with the flight recorder's summed ``llm`` phase host times of
    the same windows beside the device time.
 7. The telemetry A/B on ``serve`` and ``serve_paged``: the same 6-request
-   traffic with ``metrics_enabled`` and ``flightrec`` off, then on, two
-   rounds in turn on one engine, each timed on the host clock and then
+   traffic with ``metrics_enabled`` and ``flightrec`` off, then on, one
+   round each on one engine, each timed on the host clock and then
    profiled over 24 decode steps. The greedy streams must be identical
    between the arms and the decode device time other than the copies
    (the logits readback to pageable memory, whose recorded time follows
@@ -240,6 +240,47 @@ Phases, each of which fails the script (non-zero exit) when it fails:
    and engine step time, the HTTP latencies, the streamed chat's first
    byte and the tokens per second over HTTP are printed as one
    ``{"serve_app": ...}`` line, with the card line.
+20. Device objects (``device_objects``), in phase 17's session after phase
+   19: two actors at ``num_gpus=0.5`` each. (a) The producer turns
+   ``enable_device_objects()`` on and returns a seeded 64 MiB bf16 CUDA
+   tensor (phase 17's CUDA return, side by side): it must stay in the
+   producer's store, and the consumer, given the return as an argument,
+   must hold it on its card with the bits of the same seeded tensor, its
+   ``transfer_stats()`` showing at least one pull and no fallback; with
+   the fetch budget of 1 the producer's store must then be empty. (b) An
+   explicit ``device_put`` (budget 0), ``device_get`` onto the consumer's
+   card (timed there) and ``device_free``: kept until freed, then gone.
+   (c) A multi-world handoff: the two actors join a two-rank gloo world
+   (``make_mesh(MeshSpec(dp=2))``) and each keeps its row half of a seeded
+   [8192, 4096] bf16 tensor (64 MiB) under ``P("dp", None)``; this process
+   plans, has both arm and assembles the whole tensor on its card
+   (``pull_and_assemble``): two pulls, no fallback, the bits equal. The
+   ms and GB/s of each handoff are printed as one ``{"device_objects":
+   ...}`` line. No kernel runs: the launch counts, zeroed just before
+   the handoffs in this process and in both actors and read just after,
+   must sum to 0.
+21. The data tier feeding training (``train_data``), in the same session:
+   ``TorchTrainer(datasets={"train": from_numpy(rows)})`` where ``rows``
+   are seeded int32 tokens of shape [24, 1025]; one worker holding the
+   ``GPU`` unit trains phase 10's GPT-2-125M ([8, 1024], ``remat="mlp"``,
+   initial state seed 0) three steps on the batches of
+   ``get_dataset_shard("train").iter_device_batches(batch_size=8)``. The
+   losses must equal bit for bit those of the same rows through
+   ``train_loop``'s in-process loop, with 12 + 12 launches every step,
+   counted in the worker (``{"train_data": ...}``).
+22. Batch inference as a data stage (``batch_data``), in the same session:
+   ``from_items`` of phase 8's four prompts in two blocks through
+   ``map_batches(build_llm_processor(...), resources={"GPU": 1})``,
+   GPT-2-125M at the serve paths' shape on the dense cache: the stage
+   holds the card, and its generated token ids and texts must equal the
+   processor's called in this process on the same blocks (the token ids
+   carry the check: ``ByteTokenizer`` decodes only ids below 256, so the
+   random weights' texts are mostly empty, and the count of non-empty
+   ones is printed). The flash_fwd launches of each block, zeroed just
+   before its call and read just after in the stage's process, must be
+   12 a fresh prefill that the block's call ran there;
+   they and the stage's wall time are printed as one ``{"batch_data":
+   ...}`` line.
 
 Telemetry stays on (``GLOBAL_CONFIG`` of :mod:`ray_tpu_torch.core.config`)
 for every phase but the A/B's "off" arm.
@@ -337,7 +378,7 @@ KERNELS = ("flash_fwd", "flash_bwd")
 # copies: the logits readback to pageable memory is staged through the
 # host, and its recorded duration follows the host (3.9 to 9.2 ms in a
 # window whose other device time held within 1 %).
-AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 2, 24, 0.03
+AB_ROUNDS, AB_DECODE_STEPS, AB_DEVICE_TOL = 1, 24, 0.03
 BATCH_PROMPTS = ["The quick brown fox", "Hello, world", "ray_tpu on the H100", "batch inference"]
 
 
@@ -2341,10 +2382,12 @@ def live_workers(pids) -> list[int]:
 def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cuda",
                  dp2_ref: dict | None = None, stream_bound: float = 0.0) -> dict:
     """The core runtime on the card (see the module docstring, phase 17),
-    then the train tier (``out["train_loop"]``, see :func:`train_loop`) and
+    then the train tier (``out["train_loop"]``, see :func:`train_loop`),
     the serve tier (``out["serve_app"]``, see :func:`serve_app`; streams
-    held to ``stream_bound``, phase 5's bf16 noise) in the same session, so
-    the no-survivor check covers their workers."""
+    held to ``stream_bound``, phase 5's bf16 noise), device objects
+    (``out["device_objects"]``) and the data tier (``out["train_data"]``,
+    ``out["batch_data"]``) in the same session, so the no-survivor check
+    covers their workers."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import _native
     from ray_tpu_torch.core import api as rt_api
@@ -2464,6 +2507,12 @@ def runtime_path(card: str, serve_run: dict, train_run: dict, device: str = "cud
         out["train_loop"] = loop
         # The serve tier: build_openai_app deployed with serve.run.
         out["serve_app"] = serve_app(rt, card, device, stream_bound, pids)
+        # Device objects, then the data tier feeding training and batch
+        # inference.
+        out["device_objects"] = device_objects_path(rt, device, pids)
+        with tempfile.TemporaryDirectory() as tmp:
+            out["train_data"] = train_data_path(rt, device, tmp, pids)
+        out["batch_data"] = batch_data_path(device, pids)
         for node in rt_api._runtime.nodes:
             pids.update(w.proc.pid for w in node.workers.values() if w.proc is not None)
     finally:
@@ -3044,6 +3093,406 @@ def serve_app(rt, card: str, device: str, stream_bound: float, pids: set) -> dic
     return out
 
 
+# Device objects on the card (device_objects), in the runtime phase's
+# session: a CUDA tensor handed between two GPU actors over the transfer
+# fabric with its bits kept, an explicit device_put/get/free, and a
+# multi-world handoff of a row-split tensor assembled whole here.
+DEVOBJ_BYTES = RUNTIME_CUDA_BYTES  # the runtime phase's CUDA return, side by side
+DEVOBJ_SEED = RUNTIME_CUDA_SEED
+MW_SHAPE = (8192, 4096)  # bf16: 64 MiB, two row halves of 32 MiB
+MW_SEED = 5
+DEVOBJ_TIMEOUT_S = 300
+
+
+def seeded_matrix(shape, device, seed: int) -> torch.Tensor:
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(torch.bfloat16)
+
+
+class DevObjActor:
+    """One end of the device-object handoffs, holding half a GPU: it makes,
+    takes and checks tensors on its card, and is one rank of a two-process
+    world whose ranks hold the two row halves of the multi-world tensor."""
+
+    def __init__(self, device: str):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            self.device = torch.device("cuda", torch.cuda.current_device())
+
+    def ready(self) -> int:
+        return os.getpid()
+
+    def produce(self) -> torch.Tensor:
+        """The seeded 64 MiB bf16 tensor, returned with device objects on:
+        it stays here and travels as a DeviceRef (fetch budget 1)."""
+        from ray_tpu_torch.experimental import enable_device_objects
+
+        enable_device_objects(fetches_before_free=1)
+        return seeded_bf16(DEVOBJ_BYTES, self.device, DEVOBJ_SEED)
+
+    def put_explicit(self):
+        """device_put with a fetch budget of 0: kept until freed."""
+        from ray_tpu_torch.experimental import device_put
+
+        return device_put(seeded_bf16(DEVOBJ_BYTES, self.device, DEVOBJ_SEED + 1),
+                          fetches_before_free=0)
+
+    def consume(self, value) -> dict:
+        """``value`` arrived as an argument, fetched from its owner at
+        deserialization: on this card, with the seeded bits."""
+        from ray_tpu_torch.experimental import transfer_stats
+
+        want = seeded_bf16(DEVOBJ_BYTES, self.device, DEVOBJ_SEED)
+        return dict(pid=os.getpid(), device=str(value.device), dtype=str(value.dtype),
+                    on_card=value.device == self.device, equal=bool(torch.equal(value, want)),
+                    stats=transfer_stats())
+
+    def fetch(self, ref) -> dict:
+        """An explicit device_get of ``ref`` onto this card, timed."""
+        from ray_tpu_torch.experimental import device_get, transfer_stats
+
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value = device_get(ref, device=self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        want = seeded_bf16(DEVOBJ_BYTES, self.device, DEVOBJ_SEED + 1)
+        return dict(ms=ms, on_card=value.device == self.device, equal=bool(torch.equal(value, want)),
+                    stats=transfer_stats())
+
+    def launches(self, zero: bool = False) -> dict:
+        """This process's kernel launches, then zeroed where asked."""
+        got = {"flash_fwd": attention.flash_fwd_launches, "flash_bwd": attention.flash_bwd_launches}
+        if zero:
+            attention.flash_fwd_launches = attention.flash_bwd_launches = 0
+        return got
+
+    def store_stats(self) -> dict:
+        from ray_tpu_torch.experimental import device_store_stats, transfer_stats
+
+        return dict(store=device_store_stats(), transfer=transfer_stats())
+
+    def join_world(self, port: int, rank: int) -> dict:
+        """Join the two-rank gloo world and keep this rank's row half of
+        the seeded [8192, 4096] tensor under P("dp", None)."""
+        from ray_tpu_torch.experimental.multiworld import export_shards
+        from ray_tpu_torch.parallel import NamedSharding
+
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                                rank=rank)
+        self.sharding = NamedSharding(make_mesh(MeshSpec(dp=2), self.device.type), P("dp", None))
+        whole = seeded_matrix(MW_SHAPE, self.device, MW_SEED)
+        self.local = self.sharding.shard(whole).clone()
+        del whole
+        return export_shards(self.local, self.sharding)
+
+    def arm_for(self, positions) -> dict:
+        from ray_tpu_torch.experimental.multiworld import arm_shards
+
+        return arm_shards(self.local, positions)
+
+    def leave_world(self) -> bool:
+        dist.destroy_process_group()
+        self.local = None
+        return True
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def device_objects_path(rt, device: str, pids: set) -> dict:
+    """Device objects on the card (see the module docstring, phase 20)."""
+    from ray_tpu_torch.experimental import transfer_stats
+    from ray_tpu_torch.experimental.multiworld import plan_pulls, pull_and_assemble
+    from ray_tpu_torch.parallel import NamedSharding, local_mesh
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    half = {"num_gpus": 0.5} if cuda else {}
+    timeout = DEVOBJ_TIMEOUT_S
+    actor = rt.remote(**half)(DevObjActor)
+    producer, consumer = actor.remote(device), actor.remote(device)
+    t0 = time.perf_counter()
+    pids.update(rt.get([producer.ready.remote(), consumer.ready.remote()], timeout=timeout))
+    out = dict(actors_start_s=time.perf_counter() - t0)
+    try:
+        # The launch counts, zeroed just before the handoffs here and in
+        # both actors.
+        rt.get([producer.launches.remote(zero=True), consumer.launches.remote(zero=True)],
+               timeout=timeout)
+        attention.flash_fwd_launches = attention.flash_bwd_launches = 0
+        # (a) An actor's return handed to another actor as an argument.
+        value = producer.produce.remote()
+        rt.wait([value], timeout=timeout)
+        held = rt.get(producer.store_stats.remote(), timeout=timeout)["store"]
+        assert held["num_objects"] == 1 and held["nbytes"] == DEVOBJ_BYTES, held
+        t0 = time.perf_counter()
+        got = rt.get(consumer.consume.remote(value), timeout=timeout)
+        wall_s = time.perf_counter() - t0
+        after = rt.get(producer.store_stats.remote(), timeout=timeout)
+        assert got["on_card"] and got["equal"] and got["dtype"] == "torch.bfloat16", got
+        assert got["stats"]["pulls"] >= 1 and got["stats"]["fallbacks"] == 0, got["stats"]
+        assert after["store"]["num_objects"] == 0, after  # budget 1: freed by the handoff
+        out["intercepted"] = dict(
+            mib=DEVOBJ_BYTES / 2**20, held_before=held, held_after=after["store"],
+            consumer_device=got["device"], bits_equal=True, consumer_stats=got["stats"],
+            producer_stats=after["transfer"], call_wall_ms=1e3 * wall_s,
+            call_gb_s=DEVOBJ_BYTES / wall_s / 1e9)
+        del value
+
+        # (b) device_put / device_get / device_free, budget 0.
+        ref = rt.get(producer.put_explicit.remote(), timeout=timeout)
+        assert (ref.shape, ref.dtype, ref.device) == ((DEVOBJ_BYTES // 2,), "bfloat16", device), ref
+        fetched = rt.get(consumer.fetch.remote(ref), timeout=timeout)
+        still = rt.get(producer.store_stats.remote(), timeout=timeout)["store"]
+        from ray_tpu_torch.experimental import device_free
+
+        freed = device_free(ref)
+        gone = rt.get(producer.store_stats.remote(), timeout=timeout)["store"]
+        assert fetched["on_card"] and fetched["equal"], fetched
+        assert fetched["stats"]["fallbacks"] == 0, fetched["stats"]
+        assert still["num_objects"] == 1 and freed and gone["num_objects"] == 0, (still, freed, gone)
+        out["explicit"] = dict(ms=fetched["ms"], gb_s=DEVOBJ_BYTES / fetched["ms"] / 1e6,
+                               bits_equal=True, kept_until_freed=True, freed=True,
+                               consumer_stats=fetched["stats"])
+
+        # (c) Multi-world: the two actors are a two-rank world holding the
+        # row halves; this process assembles the whole tensor on its card.
+        port = free_port()
+        catalogs = rt.get([producer.join_world.remote(port, 0), consumer.join_world.remote(port, 1)],
+                          timeout=timeout)
+        assert [c["process_index"] for c in catalogs] == [0, 1], catalogs
+        whole = NamedSharding(local_mesh(), P())
+        plan = plan_pulls(catalogs, whole, MW_SHAPE)
+        assert plan == {0: [0], 1: [0]}, plan
+        ranks = (producer, consumer)
+        descs = rt.get([ranks[c["process_index"]].arm_for.remote(plan[c["process_index"]])
+                        for c in catalogs], timeout=timeout)
+        before = transfer_stats()
+        target = torch.device("cuda", 0) if cuda else torch.device("cpu")
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        assembled = pull_and_assemble(catalogs, descs, whole, device=target)
+        if cuda:
+            torch.cuda.synchronize()
+        mw_s = time.perf_counter() - t0
+        stats = transfer_stats()
+        want = seeded_matrix(MW_SHAPE, target, MW_SEED)
+        assert assembled.device == target and torch.equal(assembled, want), "the multi-world handoff changed bits"
+        pulls, fallbacks = stats["pulls"] - before["pulls"], stats["fallbacks"] - before["fallbacks"]
+        assert (pulls, fallbacks) == (2, 0), stats
+        rt.get([r.leave_world.remote() for r in ranks], timeout=timeout)
+        mw_bytes = assembled.numel() * assembled.element_size()
+        out["multiworld"] = dict(shape=list(MW_SHAPE), mib=mw_bytes / 2**20,
+                                 boxes=[c["shards"][0]["box"] for c in catalogs], plan=plan,
+                                 pulls=pulls, fallbacks=fallbacks, bits_equal=True,
+                                 ms=1e3 * mw_s, gb_s=mw_bytes / mw_s / 1e9)
+        del assembled, want
+        # ... and read just after, summed over the three processes.
+        counts = [{"flash_fwd": attention.flash_fwd_launches,
+                   "flash_bwd": attention.flash_bwd_launches}]
+        counts += rt.get([producer.launches.remote(), consumer.launches.remote()], timeout=timeout)
+        out["launches"] = {k: sum(c[k] for c in counts) for k in KERNELS}
+        assert out["launches"] == {"flash_fwd": 0, "flash_bwd": 0}, counts  # no kernel runs
+    finally:
+        for h in (producer, consumer):
+            rt.kill(h)
+    log("device_objects", json.dumps(out))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# The data tier feeding the train tier on the card (train_data): a seeded
+# from_numpy Dataset of int32 token rows through TorchTrainer(datasets=),
+# one worker holding the card, read with iter_device_batches.
+DATA_TRAIN_STEPS = 3
+DATA_SEED = 11
+
+
+def data_rows(cfg) -> np.ndarray:
+    """[DATA_TRAIN_STEPS * TRAIN_B, max_seq + 1] int32 token rows from a
+    seeded generator: each row holds its inputs and, shifted by one, its
+    targets."""
+    rng = np.random.default_rng(DATA_SEED)
+    return rng.integers(0, cfg.vocab_size, (DATA_TRAIN_STEPS * TRAIN_B, cfg.max_seq + 1),
+                        dtype=np.int32)
+
+
+def data_train_fn(config):
+    """train_data's train loop, in the worker: phase 10's model and initial
+    state, batches from this worker's dataset shard staged on the card,
+    one report a step with the loss and the step's launches (zeroed just
+    before the step and read just after)."""
+    import ray_tpu_torch.train as rtrain
+    from ray_tpu_torch.train import torch_backend
+
+    t_entry = time.time()
+    dev = torch_backend.train_device()
+    cfg = train_config()
+    model, _, opt, state = train_setup(dev, cfg)
+    step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=cfg), opt)
+    shard = rtrain.get_dataset_shard("train")
+    for i, batch in enumerate(shard.iter_device_batches(batch_size=TRAIN_B, device=dev), start=1):
+        attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the step
+        state, m = step(state, batch)
+        rtrain.report({"step": i, "loss": m["loss"], "flash_fwd": attention.flash_fwd_launches,
+                       "flash_bwd": attention.flash_bwd_launches,  # read just after
+                       "device": str(batch["tokens"].device), "dtype": str(batch["tokens"].dtype),
+                       "shape": list(batch["tokens"].shape), "t": time.time(), "t_entry": t_entry,
+                       "pid": os.getpid()})
+
+
+def train_data_path(rt, device: str, tmp: str, pids: set) -> dict:
+    """TorchTrainer.fit from a Dataset on the card (see the module
+    docstring, phase 21); the losses held bit for bit to the same rows fed
+    through train_loop's in-process loop."""
+    import ray_tpu_torch.data as rdata
+    from ray_tpu_torch.train import RunConfig, ScalingConfig, TorchConfig, TorchTrainer
+
+    t_phase = time.perf_counter()
+    cuda = device == "cuda"
+    dev = torch.device("cuda", 0) if cuda else torch.device("cpu")
+    cfg = train_config()
+    rows = data_rows(cfg)
+    ds = rdata.from_numpy(rows, column="tokens")
+    t0_wall, t0 = time.time(), time.perf_counter()
+    result = TorchTrainer(
+        data_train_fn,
+        train_loop_config={},
+        scaling_config=ScalingConfig(num_workers=1, resources_per_worker={"GPU": 1}),
+        torch_config=TorchConfig() if cuda else TorchConfig(backend="gloo", device="cpu"),
+        run_config=RunConfig(name="train_data", storage_path=os.path.join(tmp, "data")),
+        datasets={"train": ds},
+    ).fit()
+    fit_s = time.perf_counter() - t0
+    hist = result.metrics_history
+    assert [m["step"] for m in hist] == list(range(1, DATA_TRAIN_STEPS + 1)), hist
+    assert all(m["shape"] == [TRAIN_B, cfg.max_seq + 1] and m["dtype"] == "torch.int32" for m in hist), hist
+    n_layer = cfg.n_layer
+    if cuda:
+        assert all(m["device"] == "cuda:0" for m in hist), hist
+        assert all((m["flash_fwd"], m["flash_bwd"]) == (n_layer, n_layer) for m in hist), hist
+    pids.update(m["pid"] for m in hist)
+    # The same rows through train_loop's in-process loop.
+    model, _, opt, ref_state = train_setup(dev, cfg)
+    step = spmd.make_train_step(functools.partial(model.loss_fn, cfg=cfg), opt)
+    ref = [step(ref_state, {"tokens": torch.from_numpy(rows[i:i + TRAIN_B]).to(dev)})[1]["loss"].item()
+           for i in range(0, len(rows), TRAIN_B)]
+    del ref_state
+    losses = [m["loss"] for m in hist]
+    assert losses == ref, ("the Dataset-fed losses differ from the in-process loop's", losses, ref)
+    out = dict(model="GPT2Config", rows=list(rows.shape), dtype="int32", batch=[TRAIN_B, cfg.max_seq],
+               remat=cfg.remat, steps=DATA_TRAIN_STEPS, losses=losses, inprocess_losses=ref,
+               losses_bit_equal=True, fit_s=fit_s, worker_start_s=hist[0]["t_entry"] - t0_wall,
+               step_wall_s=[b["t"] - a["t"] for a, b in zip(hist, hist[1:])],
+               launches_per_step={"flash_fwd": hist[0]["flash_fwd"], "flash_bwd": hist[0]["flash_bwd"]},
+               launches={"flash_fwd": sum(m["flash_fwd"] for m in hist),
+                         "flash_bwd": sum(m["flash_bwd"] for m in hist)})
+    log("train_data", json.dumps(out))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# Batch inference as a data stage on the card (batch_data):
+# from_items of the batch path's prompts in two blocks through
+# map_batches(build_llm_processor(...)), the stage holding the card.
+BATCH_DATA_BLOCKS = 2
+
+
+def batch_data_config() -> LLMConfig:
+    """GPT-2-125M at the serve paths' shape on the dense cache, seed 0."""
+    return LLMConfig(seed=0, kv_block_size=0)
+
+
+def counted_processor(proc, config, device):
+    """``proc`` that also returns, per row, the generated token ids, the
+    kernels' launches of the block's call in the calling process (zeroed
+    just before the call and read just after), the fresh prefills its
+    engine ran in that call (prefill calls less prefix hits, as the A/B
+    counts them), and that process's pid and card."""
+
+    def stage(batch):
+        engine = llm_batch._engine_for(config, device)  # the one ``proc`` uses
+        if "_prefill_calls" not in engine.__dict__:
+            engine._prefill_calls, generate = count_prefill_calls(engine), engine.generate
+
+            def kept(*a, **kw):
+                engine.smoke_results = generate(*a, **kw)
+                return engine.smoke_results
+
+            engine.generate = kept
+        calls0, hits0 = engine._prefill_calls[0], engine.stats["prefix_hits"]
+        attention.flash_fwd_launches = attention.flash_bwd_launches = 0  # zeroed just before the call
+        out = proc(batch)
+        n = len(out["generated_text"])
+        fresh = engine._prefill_calls[0] - calls0 - (engine.stats["prefix_hits"] - hits0)
+        return {**out, "token_ids": [list(r["token_ids"]) for r in engine.smoke_results],
+                "flash_fwd": [attention.flash_fwd_launches] * n,  # read just after
+                "flash_bwd": [attention.flash_bwd_launches] * n,
+                "prefills": [fresh] * n, "pid": [os.getpid()] * n, "card": [card_name()] * n}
+
+    return stage
+
+
+def batch_data_path(device: str, pids: set) -> dict:
+    """map_batches(build_llm_processor(...)) on the card (see the module
+    docstring, phase 22)."""
+    import ray_tpu_torch.data as rdata
+
+    t_phase = time.perf_counter()
+    config, sampling = batch_data_config(), SamplingParams(max_tokens=MAX_TOKENS)
+    proc = build_llm_processor(config, sampling=sampling, device=device)
+    items = [{"prompt": p, "id": i} for i, p in enumerate(BATCH_PROMPTS)]
+    gpu = {"GPU": 1.0} if device == "cuda" else None
+    t0 = time.perf_counter()
+    ds = rdata.from_items(items, parallelism=BATCH_DATA_BLOCKS).map_batches(
+        counted_processor(proc, config, device), resources=gpu)
+    rows = ds.take_all()
+    stage_s = time.perf_counter() - t0
+    assert [r["prompt"] for r in rows] == BATCH_PROMPTS and [r["id"] for r in rows] == list(range(4))
+    # The same processor called in this process on the same blocks.
+    per_block = len(BATCH_PROMPTS) // BATCH_DATA_BLOCKS
+    local, inproc = counted_processor(proc, config, device), []
+    for i in range(0, len(BATCH_PROMPTS), per_block):
+        got = local({"prompt": BATCH_PROMPTS[i:i + per_block]})
+        inproc += [dict(text=t, ids=[int(i) for i in ids])
+                   for t, ids in zip(got["generated_text"], got["token_ids"])]
+    llm_batch._ENGINE_CACHE.clear()
+    texts = [r["generated_text"] for r in rows]
+    streams = [dict(text=r["generated_text"], ids=[int(t) for t in r["token_ids"]]) for r in rows]
+    assert streams == inproc, ("the stage's texts differ from the in-process processor's", streams, inproc)
+    assert all(len(s["ids"]) == MAX_TOKENS for s in streams), streams
+    per_row = ("flash_fwd", "flash_bwd", "prefills")
+    blocks = [{k: rows[i][k] for k in per_row} for i in range(0, len(rows), per_block)]
+    assert all(rows[i][k] == b[k] for b, j in zip(blocks, range(0, len(rows), per_block))
+               for i in range(j, j + per_block) for k in per_row), rows
+    launches = {k: sum(b[k] for b in blocks) for k in KERNELS}
+    prefills = sum(b["prefills"] for b in blocks)
+    pids.update(r["pid"] for r in rows)
+    assert all(b["prefills"] >= 1 for b in blocks), blocks
+    if device == "cuda":
+        assert all(r["card"] == torch.cuda.get_device_name(0) for r in rows), rows
+        n_layer = config.build_model_config().n_layer  # one flash_fwd a layer a fresh prefill
+        assert launches == {"flash_fwd": n_layer * prefills, "flash_bwd": 0}, (launches, prefills)
+    assert os.getpid() not in {r["pid"] for r in rows}
+    out = dict(model="GPT2Config", paged=False, slots=config.max_slots, max_seq=config.max_seq,
+               prompts=len(BATCH_PROMPTS), blocks=BATCH_DATA_BLOCKS,
+               stage_pids=sorted({r["pid"] for r in rows}), texts_equal_inprocess=True,
+               stage_wall_s=stage_s, fresh_prefills=prefills, per_block=blocks,
+               launches=launches, texts=texts, nonempty_texts=sum(bool(t) for t in texts),
+               token_ids_equal_inprocess=True,
+               first_ids=[s["ids"][:8] for s in streams])
+    log("batch_data", json.dumps(out))
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def kernel_entry(name, built, rows, head, launches_by_path, replaces) -> dict:
     return {
         "name": name,
@@ -3173,8 +3622,14 @@ def main() -> int:
                            stream_bound=bf16_bound)
     loop = runtime.pop("train_loop")
     app = runtime.pop("serve_app")
+    devobj = runtime.pop("device_objects")
+    train_data = runtime.pop("train_data")
+    batch_data = runtime.pop("batch_data")
     print(json.dumps({"train_loop": loop}), flush=True)
     print(json.dumps({"serve_app": app}), flush=True)
+    print(json.dumps({"device_objects": devobj}), flush=True)
+    print(json.dumps({"train_data": train_data}), flush=True)
+    print(json.dumps({"batch_data": batch_data}), flush=True)
     print(json.dumps({"runtime": runtime}), flush=True)
 
     fwd_head = next(
@@ -3195,7 +3650,10 @@ def main() -> int:
                         "train_loop": loop["launches"]["flash_fwd"],
                         "train_loop_dp2": loop["launches_dp2"]["flash_fwd"],
                         "serve_app": app["launches"]["flash_fwd"],
-                        "serve_app_disagg": app["launches_disagg"]["flash_fwd"]},
+                        "serve_app_disagg": app["launches_disagg"]["flash_fwd"],
+                        "device_objects": devobj["launches"]["flash_fwd"],
+                        "train_data": train_data["launches"]["flash_fwd"],
+                        "batch_data": batch_data["launches"]["flash_fwd"]},
                        "ray_tpu/ops/attention.py:72")
     fwd["max_abs_err_lse"] = max(r["max_abs_err_lse"] for r in fwd_rows)
     bwd = kernel_entry("flash_bwd", built, bwd_rows, bwd_head,
@@ -3212,7 +3670,10 @@ def main() -> int:
                         "train_loop": loop["launches"]["flash_bwd"],
                         "train_loop_dp2": loop["launches_dp2"]["flash_bwd"],
                         "serve_app": app["launches"]["flash_bwd"],
-                        "serve_app_disagg": app["launches_disagg"]["flash_bwd"]},
+                        "serve_app_disagg": app["launches_disagg"]["flash_bwd"],
+                        "device_objects": devobj["launches"]["flash_bwd"],
+                        "train_data": train_data["launches"]["flash_bwd"],
+                        "batch_data": batch_data["launches"]["flash_bwd"]},
                        "ray_tpu/ops/attention.py:152")
     bwd["max_rel_err"] = max(r["max_rel_err"] for r in bwd_rows)
     print(json.dumps({"kernels": [fwd, bwd]}), flush=True)

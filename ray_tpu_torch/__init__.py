@@ -18,7 +18,12 @@ processes), so ``import ray_tpu_torch; ray_tpu_torch.init()`` and
 ``@ray_tpu_torch.remote(num_gpus=1)`` run work on the card in a worker
 process. A node advertises its visible CUDA cards as the ``GPU`` resource;
 a CUDA tensor put into the object store, or returned by a task, arrives as
-a host tensor with its dtype, shape and bits.
+a host tensor with its dtype, shape and bits, unless its process turned on
+device objects (:mod:`ray_tpu_torch.experimental`), which keep it on its
+card and hand it over the transfer fabric. On that runtime sit the train
+tier (:mod:`ray_tpu_torch.train`), the serve tier
+(:mod:`ray_tpu_torch.serve`) and the data tier
+(:mod:`ray_tpu_torch.data`), which feeds both.
 
 Importing the package builds nothing and starts nothing: the runtime's
 symbols load on first use, and a kernel is compiled with ``nvcc`` the first

@@ -12,9 +12,12 @@ the telemetry switches (``metrics_enabled``, ``flightrec*``,
 ``tracing_enabled``), ``spec_decode``, the serve tier's ``prefix_routing*``,
 ``admission``, ``disagg`` and ``serve_*`` knobs, ``faults`` (parsed at import by
 :mod:`ray_tpu_torch.core.faults`), ``xfer_armed_cap`` (the transfer
-fabric's armed-entry cap) and the train tier's ``storage_path``,
-``train_*`` and ``elastic_*`` knobs. Tests flip a field on ``GLOBAL_CONFIG`` and
-restore it.
+fabric's armed-entry cap, which device objects' arms ride), the data
+tier's ``data_*`` knobs and the train tier's ``storage_path``, ``train_*``
+and ``elastic_*`` knobs. As in the reference, device objects' fabric
+switch ``RAY_TPU_RDT_FABRIC`` (``0``: every fetch takes the host path) is
+read from the environment at each fetch, not from this table. Tests flip
+a field on ``GLOBAL_CONFIG`` and restore it.
 """
 
 from __future__ import annotations
@@ -279,6 +282,37 @@ class Config:
     # copied on a side stream) this many batches ahead of the consuming
     # step, off the timed path. 0 = hand host batches straight through.
     train_prefetch_depth: int = 2
+    # Memory-governed streaming data plane. ``data_governor`` is the kill
+    # switch (RAY_TPU_DATA_GOVERNOR=0): off, the streaming executor runs
+    # the pre-governor submission loop byte-identically: per-stage
+    # in-flight windows only, no occupancy polling, no watermark
+    # arbitration, the static round-robin actor pool. On, a per-execution
+    # MemoryGovernor (data/governor.py) tracks per-operator in-flight
+    # bytes and global object-store occupancy (the heartbeat's store
+    # gauges; a DRAINING node's store does not count as headroom) and
+    # grants/revokes task-submission budgets: throttle when occupancy
+    # crosses data_store_high_frac (or any node spills), release once it
+    # falls back under data_store_low_frac (hysteresis: budgets hold
+    # inside the band), AIMD on the per-operator task budget (halve on a
+    # high crossing, +1 per poll below the low watermark).
+    data_governor: bool = True
+    data_store_high_frac: float = 0.75
+    data_store_low_frac: float = 0.5
+    # Per-operator in-flight block-task cap. 0 = auto: max(4, 2 * host
+    # cores).
+    data_max_inflight_per_op: int = 0
+    # How often the governor refreshes cluster store occupancy (one
+    # bounded get_cluster_view RPC per interval, shared across every
+    # acquire/release in the window).
+    data_governor_poll_interval_s: float = 0.1
+    # Actor-pool map operator defaults (map_batches compute=
+    # ActorPoolStrategy()/"actors"): the pool starts at min_size actors,
+    # scales up to max_size on queue depth under the governor's budget,
+    # and scales back down when actors sit idle; each actor serves at
+    # most max_tasks_per_actor blocks concurrently.
+    data_actor_pool_min_size: int = 1
+    data_actor_pool_max_size: int = 2
+    data_actor_pool_max_tasks_per_actor: int = 2
     # Elastic training. ``elastic_train`` is the kill switch
     # (RAY_TPU_ELASTIC_TRAIN=0): off, a membership change tears the gang
     # down on a drain notice and rebuilds it from the latest persisted

@@ -12,10 +12,11 @@ One asyncio endpoint carries all roles: owner RPCs ("owner.*"), task execution
 on a dedicated executor thread pool so user code (a CUDA kernel's host-side
 wait included) never blocks the control plane.
 
-Port of ``ray_tpu/core/core_worker.py``. Not ported yet: device objects
-(the reference's ``worker.rdt_*`` handlers), compiled-DAG loops and
-channels, and the live profiling handlers (``worker.profile``,
-``worker.dump_stacks``, ``worker.jax_trace``).
+Port of ``ray_tpu/core/core_worker.py``, with the device-object handlers
+(``worker.rdt_fetch``, ``rdt_free``, ``rdt_done``, ``rdt_unarm`` and
+``rdt_arm``) that serve :mod:`ray_tpu_torch.experimental.device_objects`.
+Not ported yet: compiled-DAG loops and channels, and the live profiling
+handlers (``worker.profile``, ``worker.dump_stacks``, ``worker.jax_trace``).
 """
 
 from __future__ import annotations
@@ -197,6 +198,10 @@ class CoreWorker:
         self._stopped = False
         self._view_cache: dict | None = None
         self._view_time = 0.0
+        # Device-object arm/free race markers (see _h_worker_rdt_arm);
+        # counted so concurrent arms of one oid all observe a mid-arm free.
+        self._rdt_arming: dict[str, int] = {}
+        self._rdt_freed_while_arming: set[str] = set()
 
         # Observability: buffered task lifecycle events, flushed to the GCS
         # on an interval (reference: task_event_buffer.h -> GcsTaskManager).
@@ -2036,6 +2041,105 @@ class CoreWorker:
             await self._h_worker_push_task(conn, task)
             for task in p["tasks"]
         ]
+
+    # -- device objects (reference: gpu_object_manager __ray_send__) ---------
+
+    async def _h_worker_rdt_fetch(self, conn, p):
+        """Serve a device object as a host tensor (the device->host copy
+        runs in the executor thread: it must not block the endpoint
+        loop)."""
+        from ray_tpu_torch.experimental.device_objects import store
+
+        return await asyncio.get_running_loop().run_in_executor(
+            None, store().fetch_host, p["oid"]
+        )
+
+    async def _h_worker_rdt_free(self, conn, p):
+        from ray_tpu_torch.experimental import transfer as _xfer
+        from ray_tpu_torch.experimental.device_objects import store
+
+        if p["oid"] in self._rdt_arming:
+            # An arm is staging this object in the executor thread right
+            # now: mark it so the arm completion discards its descriptor.
+            self._rdt_freed_while_arming.add(p["oid"])
+        freed = store().free(p["oid"])
+        # Release armed fabric copies unconditionally: a budget-exhausted
+        # object is already gone from the store (freed=False) but its
+        # staged copy may still sit armed.
+        if _xfer._fabric is not None:
+            _xfer.fabric().release_armed(p["oid"])
+        return freed
+
+    async def _h_worker_rdt_done(self, conn, p):
+        """Consumer ack: the pull for this uuid completed; drop the staged
+        copy so the producer does not keep it."""
+        from ray_tpu_torch.experimental import transfer as _xfer
+
+        if _xfer._fabric is not None:
+            _xfer.fabric().release_uuid(p["uuid"])
+        return True
+
+    async def _h_worker_rdt_unarm(self, conn, p):
+        """Consumer's pull failed after a successful arm: drop the staged
+        copy AND refund the fetch budget by restoring the entry to the
+        store (the source tensor the arm kept)."""
+        from ray_tpu_torch.experimental import transfer as _xfer
+        from ray_tpu_torch.experimental.device_objects import store
+
+        if _xfer._fabric is None:
+            return False
+        entry = _xfer.fabric().release_uuid(p["uuid"])
+        if entry is None:
+            return False
+        oid, staged = entry[0], entry[1]
+        store().restore_arm(oid, staged)
+        return True
+
+    async def _h_worker_rdt_arm(self, conn, p):
+        """Stage a device object on the transfer fabric for one pull
+        (consumer-chosen shard decomposition). Returns the pull descriptor,
+        or {"gone": True} / {"unsupported": reason} so the caller can fall
+        back to the host path.
+
+        The staging itself (a device->host copy) runs in the executor
+        thread; a concurrent rdt_free landing on the loop mid-arm is
+        detected via the arming/freed marker sets (both handlers touch
+        them loop-side only) so a freed object can neither hand out a
+        live descriptor nor be resurrected into the store by a later
+        unarm."""
+        oid = p["oid"]
+
+        def _arm():
+            from ray_tpu_torch.experimental import device_objects
+
+            entry = device_objects.store().take_for_arm(oid)
+            if entry is None:
+                return {"gone": True}
+            try:
+                return device_objects._fabric().arm(oid, entry, p["partitions"])
+            except Exception as e:  # noqa: BLE001 - not servable over the fabric
+                device_objects.store().restore_arm(oid, entry)
+                return {"unsupported": f"{type(e).__name__}: {e}"}
+
+        self._rdt_arming[oid] = self._rdt_arming.get(oid, 0) + 1
+        try:
+            res = await asyncio.get_running_loop().run_in_executor(None, _arm)
+            if oid in self._rdt_freed_while_arming:
+                from ray_tpu_torch.experimental import transfer as _xfer
+                from ray_tpu_torch.experimental.device_objects import store
+
+                if "uuid" in res:
+                    _xfer.fabric().release_uuid(res["uuid"])
+                store().free(oid)  # drop any restore the arm path made
+                return {"gone": True}
+            return res
+        finally:
+            n = self._rdt_arming.get(oid, 1) - 1
+            if n <= 0:
+                self._rdt_arming.pop(oid, None)
+                self._rdt_freed_while_arming.discard(oid)
+            else:
+                self._rdt_arming[oid] = n
 
     def _exec_span(self, t0: float) -> dict:
         """Executor-side timing attached to task replies; the owner merges

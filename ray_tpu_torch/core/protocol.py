@@ -216,6 +216,8 @@ RPC_DEADLINE_EXEMPT = frozenset(
     {
         "worker.push_task",
         "worker.push_batch",
+        "worker.rdt_arm",  # staging of arbitrarily large tensors
+        "worker.rdt_fetch",
         "owner.get_object",
         "owner.wait_ready",
         "owner.stream_item",  # backpressure ack: held while consumer lags

@@ -9,7 +9,11 @@ python/ray/_private/serialization.py):
 2. Never ship device tensors through the object store: a CUDA
    ``torch.Tensor`` becomes a host tensor with the same dtype, shape and
    values. Device-to-device movement belongs to collectives; the object
-   store is a host-memory plane.
+   store is a host-memory plane. The exception is opt-in: in a process
+   that called ``enable_device_objects()``, every strided tensor stays in
+   that process's device-object store and travels as a ``DeviceRef``
+   that the loading process fetches
+   (:mod:`ray_tpu_torch.experimental.device_objects`).
 
 Every strided ``torch.Tensor`` (CPU or CUDA) travels as its raw bytes, a
 ``uint8`` numpy view, plus its dtype name and shape, and is rebuilt on load
@@ -62,8 +66,16 @@ class _Pickler(cloudpickle.Pickler):
             and getattr(obj, "device", None) is not None
             and obj.device.type in ("cpu", "cuda")
         ):
-            # Device tensor -> host tensor of the same dtype, shape and
-            # bits; its bytes ship as a uint8 numpy view (out-of-band).
+            # Opt-in device objects (reference: tensor_transport): the
+            # tensor stays in THIS process's store; a fetch-on-load
+            # marker travels instead.
+            from ray_tpu_torch.experimental import device_objects as _dev
+
+            if _dev.intercept_active():
+                return _dev.intercept_reduce(obj)
+            # Default: device tensor -> host tensor of the same dtype,
+            # shape and bits; its bytes ship as a uint8 numpy view
+            # (out-of-band).
             return _reduce_tensor(obj)
         # cloudpickle's own reducer_override handles functions/classes.
         return super().reducer_override(obj)

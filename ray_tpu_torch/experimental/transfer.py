@@ -35,13 +35,21 @@ consumer gave up).
 
 :meth:`_Fabric.arm_group` / :meth:`_Fabric.pull_group` move several
 tensors under one uid in one pull (the train tier's elastic plane reshards
-a rank's state with them). Not ported yet: ``release_armed``,
-``count_fallback`` and the sharding-decomposition helpers, which serve the
-device-object store and multi-world handoffs of the runtime (the
-``fallbacks`` stat stays 0 until then). A tensor is always staged whole:
-``partitions`` is validated and carried in the descriptor, and a process
-with one device stages one shard, as the reference does where the
-consumer asks for more shards than the producer has devices.
+a rank's state with them). The device-object store
+(:mod:`ray_tpu_torch.experimental.device_objects`) arms its entries here,
+drops an object's armed copies with :meth:`_Fabric.release_armed`, and
+counts every host fetch it takes instead with
+:meth:`_Fabric.count_fallback`; :mod:`ray_tpu_torch.experimental.multiworld`
+arms and pulls a rank's shard of a sharded tensor.
+
+The decomposition helpers read a consumer's wish: :func:`decomposition_of`
+gives the per-dim partition counts of a port ``NamedSharding`` (from its
+mesh's axis sizes, as its :meth:`box` cuts them), and
+:func:`max_local_decomposition` the split over this process's devices,
+which is one card a process in the port: ``(1, ...)``. A tensor is always
+staged whole: ``partitions`` is validated and carried in the descriptor,
+and a process with one device stages one shard, as the reference does
+where the consumer asks for more shards than the producer has devices.
 """
 
 from __future__ import annotations
@@ -289,7 +297,10 @@ class _Fabric:
         staged = _Staged(tensor)
         uid = _uuid.uuid4().int >> 65  # 63-bit
         self._ensure_server().await_pull(uid, [staged])
-        self._remember_armed(uid, oid, staged.host)
+        # A store's entry (an oid) keeps its source tensor, so a refund
+        # puts the object back on its own device; an arm no store owns
+        # keeps only the host copy.
+        self._remember_armed(uid, oid, staged.host if oid is None else tensor)
         return {
             "uuid": uid,
             "address": self.address(),
@@ -349,6 +360,15 @@ class _Fabric:
             for uid in uids:
                 self._server.release(uid)
 
+    def release_armed(self, oid) -> None:
+        """Drop every armed entry of ``oid`` (the object was freed before
+        any pull)."""
+        with self._lock:
+            uids = [u for u, entry in self._armed.items() if entry[0] == oid]
+            for uid in uids:
+                del self._armed[uid]
+        self._server_release(uids)
+
     def release_uuid(self, uid: int):
         """Drop one armed entry (its pull completed, or its consumer gave
         up). Returns ``(oid, staged_tensor)``, or None."""
@@ -379,6 +399,12 @@ class _Fabric:
             self._stats["pulls"] += 1
         return out
 
+    def count_fallback(self) -> None:
+        """Count one host fetch taken where the fabric did not carry the
+        data (``transfer_stats()["fallbacks"]``)."""
+        with self._lock:
+            self._stats["fallbacks"] += 1
+
     def stats(self) -> dict:
         with self._lock:
             return dict(self._stats, armed=len(self._armed), transport=self._transport)
@@ -403,3 +429,30 @@ def transfer_stats() -> dict:
     if _fabric is None:
         return {"arms": 0, "pulls": 0, "fallbacks": 0, "armed": 0, "transport": "unstarted"}
     return _fabric.stats()
+
+
+# -- decomposition helpers -----------------------------------------------------
+
+
+def decomposition_of(sharding, shape) -> tuple[int, ...]:
+    """Per-dimension partition counts of ``sharding`` (a port
+    :class:`~ray_tpu_torch.parallel.NamedSharding`) applied to ``shape``:
+    the decomposition a consumer asks the producer to stage. A dim split
+    over mesh axes is cut into the product of their sizes, as
+    ``NamedSharding.box`` cuts it; every other dim is whole."""
+    from ray_tpu_torch.parallel.sharding import _entry_axes
+
+    spec, mesh = sharding.spec, sharding.mesh
+    out = []
+    for dim in range(len(tuple(shape))):
+        entry = spec[dim] if dim < len(spec) else None
+        out.append(math.prod(mesh.size(a) for a in _entry_axes(entry)))
+    return tuple(out)
+
+
+def max_local_decomposition(shape) -> tuple[int, ...]:
+    """The split of dim0 over this process's devices: the default when the
+    consumer names no target. The reference splits dim0 over up to its
+    local device count; a port process drives one card, so nothing is
+    split."""
+    return (1,) * len(tuple(shape))

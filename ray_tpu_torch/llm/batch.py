@@ -2,10 +2,15 @@
 ``ray_tpu/llm/batch.py``.
 
 ``build_llm_processor`` returns a callable over a column batch (a dict of
-lists, as ``Dataset.map_batches`` hands it) that generates one text per
-prompt. The engine is built on the first call and cached per process, so
-later batches reuse it. The port has no Data layer yet: callers call the
-processor directly. With ``tensor_parallelism > 1`` the engine is one rank
+columns) for :meth:`ray_tpu_torch.data.Dataset.map_batches`, which
+generates one text per prompt. The engine is built on the first call and
+cached per worker process, so later batches reuse it (the reference uses
+actor pools; worker reuse across leases gives the same amortization). It
+runs on ``device``, the card unless the caller asks for the CPU: a stage
+that holds the card claims it with ``map_batches(proc, resources={"GPU":
+1})``, so its task runs where a card is free and keeps it while it
+generates. The processor can also be called directly on a batch in the
+caller's process. With ``tensor_parallelism > 1`` the engine is one rank
 of an SPMD group (:class:`~ray_tpu_torch.llm.engine.LLMEngine`): every rank
 builds the processor and calls it on the same batches, and each returns
 the same texts.

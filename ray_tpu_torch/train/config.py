@@ -53,8 +53,7 @@ class ScalingConfig:
 
 @dataclasses.dataclass
 class DataConfig:
-    """How ``datasets=`` shards feed the train loop (the data tier is not
-    ported: a trainer given ``datasets=`` raises ``NotPortedError``).
+    """How ``datasets=`` shards feed the train loop.
 
     prefetch_depth: batches staged on the device ahead of the consuming
     step (``DevicePrefetchIterator``). None = the ``train_prefetch_depth``

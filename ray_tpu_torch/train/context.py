@@ -537,8 +537,12 @@ def get_elastic_state() -> Optional[dict]:
 
 def get_dataset_shard(name: str = "train"):
     """This worker's shard of a dataset passed to the trainer via
-    ``datasets=`` (reference: ray.train.get_dataset_shard). The data tier
-    is not ported: raises ``NotPortedError``."""
-    from ray_tpu_torch.core.errors import NotPortedError
-
-    raise NotPortedError(f"the data tier (ray_tpu/data): get_dataset_shard({name!r})")
+    ``datasets=`` (reference: ray.train.get_dataset_shard): a
+    :class:`~ray_tpu_torch.data.iterator.DataIterator`."""
+    shards = getattr(get_context(), "dataset_shards", None)
+    if not shards or name not in shards:
+        raise KeyError(
+            f"no dataset shard named {name!r}; pass datasets={{'{name}': ds}} "
+            f"to the trainer"
+        )
+    return shards[name]

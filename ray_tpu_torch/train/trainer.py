@@ -9,14 +9,15 @@ train loop is the user's program (the step of
 :mod:`ray_tpu_torch.train.spmd`, over a mesh where the backend formed a
 process group); the trainer does placement, process bootstrap,
 health/failure handling, and checkpoint/report plumbing. ``datasets=``
-needs the data tier, which is not ported: it raises ``NotPortedError``.
+(:mod:`ray_tpu_torch.data` datasets) are materialised once; each worker's
+context then holds a ``DataIterator`` over its shard, read in the train
+fn through :func:`ray_tpu_torch.train.get_dataset_shard`.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional
 
-from ray_tpu_torch.core.errors import NotPortedError
 from ray_tpu_torch.train.backend import BackendConfig
 from ray_tpu_torch.train.config import DataConfig, RunConfig, ScalingConfig
 from ray_tpu_torch.train.controller import Result, TrainController, TrainingFailedError
@@ -35,20 +36,19 @@ class DataParallelTrainer:
         datasets: Optional[dict] = None,
         data_config: Optional[DataConfig] = None,
     ):
-        if datasets:
-            raise NotPortedError("the data tier (ray_tpu/data): a trainer's datasets=")
-        del data_config  # it configures datasets= only
         self._train_fn = train_loop_per_worker
         self._train_loop_config = train_loop_config
         self._backend_config = backend_config or BackendConfig()
         self._scaling_config = scaling_config or ScalingConfig(num_workers=1)
         self._run_config = run_config or RunConfig()
+        self._datasets = datasets or {}
+        self._data_config = data_config or DataConfig()
 
     def fit(self) -> Result:
         """Run to completion; raises TrainingFailedError on unrecovered
         failure (after FailureConfig.max_failures group rebuilds)."""
         controller = TrainController(
-            self._train_fn,
+            self._wrapped_train_fn(),
             self._train_loop_config,
             self._scaling_config,
             self._run_config,
@@ -58,6 +58,38 @@ class DataParallelTrainer:
         if result.error is not None:
             raise result.error
         return result
+
+    def _wrapped_train_fn(self):
+        train_fn = self._train_fn
+        if not self._datasets:
+            return train_fn
+        # Materialize to object refs before closure capture: the train fn is
+        # cloudpickled to every worker, and in-memory datasets (from_numpy /
+        # from_pandas) would otherwise ship N full copies of the data through
+        # the actor-call path instead of block refs through the object store.
+        datasets = {name: ds.materialize() for name, ds in self._datasets.items()}
+        prefetch_depth = self._data_config.prefetch_depth
+
+        from ray_tpu_torch.train.context import get_context
+
+        def with_datasets(*maybe_config):
+            # Per-worker dataset shards land in the context before the loop
+            # (reference: streaming_split feeding RayTrainWorkers). The
+            # DataConfig prefetch depth rides along so iter_device_batches
+            # stages batches on the device without per-loop plumbing.
+            from ray_tpu_torch.data.iterator import DataIterator
+
+            ctx = get_context()
+            ctx.dataset_shards = {
+                name: DataIterator(
+                    ds.shard(ctx.get_world_size(), ctx.get_world_rank()),
+                    prefetch_depth=prefetch_depth,
+                )
+                for name, ds in datasets.items()
+            }
+            return train_fn(*maybe_config)
+
+        return with_datasets
 
 
 class TorchTrainer(DataParallelTrainer):

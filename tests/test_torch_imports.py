@@ -21,6 +21,7 @@ PORT_FILES = sorted((ROOT / "ray_tpu_torch").rglob("*.py")) + [
     ROOT / "tests" / "test_torch_core_cuda.py",
     ROOT / "tests" / "test_torch_train_cuda.py",
     ROOT / "tests" / "test_torch_serve_cuda.py",
+    ROOT / "tests" / "test_torch_data_cuda.py",
 ]
 
 
@@ -61,7 +62,13 @@ def test_import_pulls_in_no_jax():
         "ray_tpu_torch.serve.asgi, ray_tpu_torch.serve.batching, ray_tpu_torch.serve.controller, "
         "ray_tpu_torch.serve.grpc_ingress, ray_tpu_torch.serve.handle, "
         "ray_tpu_torch.serve.multiplex, ray_tpu_torch.serve.proxy, ray_tpu_torch.serve.replica, "
-        "ray_tpu_torch.serve.router, ray_tpu_torch.serve.schema, ray_tpu_torch.llm.serve_llm\n"
+        "ray_tpu_torch.serve.router, ray_tpu_torch.serve.schema, ray_tpu_torch.llm.serve_llm, "
+        "ray_tpu_torch.llm.batch, ray_tpu_torch.experimental, "
+        "ray_tpu_torch.experimental.device_objects, ray_tpu_torch.experimental.multiworld, "
+        "ray_tpu_torch.data, ray_tpu_torch.data.block, ray_tpu_torch.data.context, "
+        "ray_tpu_torch.data.governor, ray_tpu_torch.data.plan, ray_tpu_torch.data.executor, "
+        "ray_tpu_torch.data.datasource, ray_tpu_torch.data.dataset, ray_tpu_torch.data.grouped, "
+        "ray_tpu_torch.data.iterator\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'yaml', 'grpc')]\n"
         "assert not bad, bad\n"
         "from ray_tpu_torch.ops import _build\n"
@@ -81,6 +88,28 @@ def test_package_import_is_light_and_the_runtime_loads_lazily():
         "assert 'ray_tpu_torch.core.api' in sys.modules\n"
         "assert 'torch' not in sys.modules, 'the runtime imports torch only for a tensor'\n"
         "assert sorted(ray_tpu_torch.__all__) == sorted(ray_tpu_torch._CORE_API)\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert r.returncode == 0, r.stderr
+
+
+def test_the_data_tier_imports_without_pyarrow():
+    """The port's Dataset needs pyarrow only to build or read a block:
+    importing the data tier (and building a plan) imports neither pyarrow
+    nor pandas, and a process without them can still import it."""
+    code = (
+        "import sys\n"
+        "import ray_tpu_torch.data as rd, ray_tpu_torch.data.executor\n"
+        "assert not any(m.split('.')[0] in ('pyarrow', 'pandas') for m in sys.modules)\n"
+        "assert not isinstance(object(), rd.Block)\n"
+        "assert not any(m.split('.')[0] in ('pyarrow', 'pandas') for m in sys.modules)\n"
+        "sys.modules['pyarrow'] = None\n"
+        "sys.modules['pandas'] = None\n"
+        "for m in [m for m in sys.modules if m.startswith('ray_tpu_torch.data')]:\n"
+        "    del sys.modules[m]\n"
+        "import ray_tpu_torch.data\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120

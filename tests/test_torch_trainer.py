@@ -10,15 +10,20 @@ end-to-end reports and checkpoints, a failure then a resume, exhausted
 failures, retention; the merge and finalize protocol of ``StorageContext``
 is compared in ``test_torch_train_units.py``) and of
 ``tests/test_train_async.py`` (device metrics through the ring, a crash
-that keeps them). Then the port alone: ``report(sharded_state=...)`` over
-two gloo ranks restored in the test process (the values of
+that keeps them), and ``datasets=`` (``tests/test_train.py:311``: each of
+two workers reads its 20 rows through ``get_dataset_shard``). The slice as
+a whole: a tiny GPT-2 trained three steps in one worker under each
+trainer, losses within 1e-4, once fed its rows directly and once from a
+``Dataset`` through ``datasets=`` (the port's run bit-equal to its
+direct one). Then the port alone: ``report(sharded_state=...)`` over two
+gloo ranks restored in the test process (the values of
 ``tests/test_sharded_checkpoint.py::test_report_sharded_state_e2e``), the
-slice as a whole (a tiny GPT-2 trained three steps in one worker under
-each trainer, losses within 1e-4; the same model at ``dp=2`` against
-JAX's unsharded step), one elastic shrink through ``drain_node`` (the step
-stream equals the analytic replay with no checkpoint read and no failure
-burnt, as ``tests/test_train_elastic.py:304``), and ``TorchConfig()`` on a
-worker without a card (it raises).
+tiny GPT-2 at ``dp=2`` against JAX's unsharded step, one elastic shrink
+through ``drain_node`` (the step stream equals the analytic replay with
+no checkpoint read and no failure burnt, as
+``tests/test_train_elastic.py:304``), a shrink then a grow at a step
+boundary (``tests/test_train_elastic.py:383``'s assertions), and
+``TorchConfig()`` on a worker without a card (it raises).
 
 A train fn is a closure (pickled by value) that imports its package from
 ``config["pkg"]``; nothing it runs reaches this module. Every ``get`` of
@@ -41,15 +46,17 @@ SHAPE = dict(n_layer=2, d_model=64, n_head=2, vocab_size=256, max_seq=32)
 OPT = dict(lr=1e-3, warmup_steps=1, total_steps=5)
 GPT_STEPS = 3
 ELASTIC_STEPS = 40
+GROW_STEPS = 110
 SESSION_S = 240
 
 pytestmark = pytest.mark.timeout(300)
 
 
 def _trainer(pkg, train_fn, storage, name, workers=1, config=None, max_failures=0,
-             num_to_keep=None, resources=None, backend=None):
+             num_to_keep=None, resources=None, backend=None, datasets=None):
     train = importlib.import_module(f"{pkg}.train")
     kw = dict(
+        datasets=datasets,
         train_loop_config=dict(config or {}, pkg=pkg),
         scaling_config=train.ScalingConfig(num_workers=workers, resources_per_worker=resources),
         run_config=train.RunConfig(
@@ -270,7 +277,87 @@ def gpt2_three_steps(pkg, storage, tree, batches):
     return _fit(_trainer(pkg, fn, storage, "gpt2", config=config))
 
 
+def gpt2_from_dataset(pkg, storage, tree, batches):
+    """The same tiny GPT-2 and the same rows, fed from a ``Dataset``
+    (``from_numpy`` of the token rows) through ``datasets=`` and
+    ``get_dataset_shard``: the JAX worker reads host batches, the port's
+    stages them with ``iter_device_batches`` (on the CPU, as asked)."""
+
+    def jax_fn(config):
+        import dataclasses
+        import functools
+
+        import jax
+        import jax.numpy as jnp
+
+        import ray_tpu.train as train
+        from ray_tpu.models import gpt2
+        from ray_tpu.train import spmd
+
+        cfg = dataclasses.replace(gpt2.GPT2Config.tiny(**config["shape"]), dtype=jnp.float32,
+                                  attn_impl="reference")
+        opt = spmd.default_optimizer(**config["opt"])
+        state = spmd.make_train_state(lambda _: jax.tree.map(jnp.asarray, config["tree"]), opt,
+                                      jax.random.key(0))
+        step = spmd.make_train_step(functools.partial(gpt2.loss_fn, cfg=cfg), opt,
+                                    donate_state=False)
+        shard = train.get_dataset_shard("train")
+        for i, batch in enumerate(shard.iter_batches(batch_size=config["rows"])):
+            state, m = step(state, {"tokens": jnp.asarray(batch["tokens"])})
+            train.report({"step": i, "loss": m["loss"]})
+
+    def port_fn(config):
+        import dataclasses
+        import functools
+
+        import torch
+
+        import ray_tpu_torch.train as train
+        from ray_tpu_torch.models import gpt2
+        from ray_tpu_torch.models.convert import gpt2_params_from_numpy
+        from ray_tpu_torch.train import spmd
+
+        cfg = dataclasses.replace(gpt2.GPT2Config.tiny(**config["shape"]), dtype=torch.float32)
+        opt = spmd.default_optimizer(**config["opt"])
+        state = spmd.make_train_state(
+            lambda _: gpt2_params_from_numpy(config["tree"], cfg, "cpu"), opt, torch.Generator(),
+            "cpu")
+        step = spmd.make_train_step(functools.partial(gpt2.loss_fn, cfg=cfg), opt)
+        shard = train.get_dataset_shard("train")
+        batches = shard.iter_device_batches(batch_size=config["rows"], device="cpu")
+        for i, batch in enumerate(batches):
+            state, m = step(state, batch)
+            train.report({"step": i, "loss": m["loss"]})
+
+    rd = importlib.import_module(f"{pkg}.data")
+    rows = np.concatenate(batches)
+    ds = rd.from_numpy(rows, column="tokens")
+    fn = jax_fn if pkg == "ray_tpu" else port_fn
+    config = dict(shape=SHAPE, opt=OPT, tree=tree, rows=len(batches[0]))
+    return _fit(_trainer(pkg, fn, storage, "gpt2_data", config=config, datasets={"train": ds}))
+
+
+def dataset_shards(pkg, storage):
+    """``datasets=`` feeds each worker its shard through
+    ``get_dataset_shard`` (``tests/test_train.py:311``: 40 rows, 20 to each
+    of 2 workers)."""
+    rd = importlib.import_module(f"{pkg}.data")
+
+    def train_fn(config):
+        import importlib
+
+        train = importlib.import_module(config["pkg"] + ".train")
+        shard = train.get_dataset_shard("train")
+        ids = [int(i) for b in shard.iter_batches(batch_size=8) for i in b["id"]]
+        train.report({"rows": len(ids), "ids": ids,
+                      "rank": train.get_context().get_world_rank()})
+
+    ds = rd.range(40, parallelism=4)
+    return _fit(_trainer(pkg, train_fn, storage, "data", workers=2, datasets={"train": ds}))
+
+
 SCENARIOS = {
+    "dataset_shards": dataset_shards,
     "e2e_reports_and_checkpoint": e2e_reports_and_checkpoint,
     "failure_then_resume": failure_then_resume,
     "exhausted_failures": exhausted_failures,
@@ -373,9 +460,11 @@ def port_gpt2_dp2(storage, tree, batches):
     return out
 
 
-def port_elastic_shrink(rt, runtime, storage):
+def port_elastic(rt, runtime, storage, steps=ELASTIC_STEPS, grow_check_s=0.0):
     """A two-node gang (SPREAD), every step reporting its state as
-    ``elastic_state``; the second node drains mid-run."""
+    ``elastic_state``; the second node drains mid-run. With
+    ``grow_check_s`` > 0 the controller then recruits a replacement at a
+    step boundary (``tests/test_train_elastic.py:383``)."""
     from ray_tpu_torch.core.config import GLOBAL_CONFIG
     from ray_tpu_torch.train import FailureConfig, RunConfig, ScalingConfig, TorchConfig
     from ray_tpu_torch.train import elastic
@@ -425,8 +514,14 @@ def port_elastic_shrink(rt, runtime, storage):
                 out[tags["kind"]] = out.get(tags["kind"], 0.0) + value
         return out
 
+    def world_gauge():
+        for name, _tags, value in registry().snapshot()["points"]:
+            if name == "raytpu_train_world_size":
+                return float(value)
+        return None
+
     saved = GLOBAL_CONFIG.elastic_grow_check_s
-    GLOBAL_CONFIG.elastic_grow_check_s = 0.0
+    GLOBAL_CONFIG.elastic_grow_check_s = grow_check_s
     try:
         node2 = runtime.add_node({"CPU": 1.0})
         deadline = time.monotonic() + 30
@@ -439,7 +534,7 @@ def port_elastic_shrink(rt, runtime, storage):
         os.makedirs(marker)
         before = reshapes()
         controller = TrainController(
-            train_fn, {"steps": ELASTIC_STEPS, "marker_dir": marker},
+            train_fn, {"steps": steps, "marker_dir": marker},
             ScalingConfig(num_workers=2, resources_per_worker={"CPU": 1},
                           placement_strategy="SPREAD"),
             RunConfig(name="elastic", storage_path=storage,
@@ -465,8 +560,9 @@ def port_elastic_shrink(rt, runtime, storage):
         return {"error": result.error, "history": result.metrics_history,
                 "marker": os.listdir(marker),
                 "shrinks": after.get("shrink", 0.0) - before.get("shrink", 0.0),
+                "grows": after.get("grow", 0.0) - before.get("grow", 0.0),
                 "fallbacks": after.get("fallback", 0.0) - before.get("fallback", 0.0),
-                "recovery_ms": elastic.last_recovery_ms()}
+                "recovery_ms": elastic.last_recovery_ms(), "world": world_gauge()}
     finally:
         GLOBAL_CONFIG.elastic_grow_check_s = saved
 
@@ -523,11 +619,15 @@ def _session(pkg, tree, batches, root) -> dict:
         # Two-row halves of each global batch for the single worker.
         res["gpt2"] = _run(lambda: gpt2_three_steps(pkg, storage("gpt2"), tree,
                                                    [b[:2] for b in batches]))
+        res["gpt2_data"] = _run(lambda: gpt2_from_dataset(pkg, storage("gpt2_data"), tree,
+                                                          [b[:2] for b in batches]))
         if pkg == "ray_tpu_torch":
             res["sharded_state"] = _run(lambda: port_sharded_state(storage("sharded")))
             res["gpt2_dp2"] = _run(lambda: port_gpt2_dp2(storage("dp2"), tree, batches))
             res["cuda_without_a_card"] = _run(lambda: port_cuda_without_a_card(storage("cuda")))
-            res["elastic"] = _run(lambda: port_elastic_shrink(rt, runtime, storage("elastic")))
+            res["elastic"] = _run(lambda: port_elastic(rt, runtime, storage("elastic")))
+            res["elastic_grow"] = _run(lambda: port_elastic(
+                rt, runtime, storage("elastic_grow"), steps=GROW_STEPS, grow_check_s=0.4))
     finally:
         rt.shutdown()
     return res
@@ -564,6 +664,9 @@ def results(monkeypatch_module, gpt2_inputs, tmp_path_factory):
 # -- the tests ---------------------------------------------------------------------
 
 EXPECTED = {
+    "dataset_shards": lambda r: (
+        r["metrics"]["rows"] == 20 and r["metrics"]["rank"] == 0
+        and len(set(r["metrics"]["ids"])) == 20),
     "e2e_reports_and_checkpoint": lambda r: (
         r["metrics"]["step"] == 2 and len(r["history"]) == 3 and r["state"] == "2"
         and r["dirs"] == ["checkpoint_000000", "checkpoint_000001", "checkpoint_000002"]),
@@ -666,6 +769,40 @@ def test_elastic_shrink_replays_exactly_with_no_read_and_no_burn(results):
     assert all(m["v"] == replay[m["step"]] for m in seen)
     assert max(m["step"] for m in seen) == ELASTIC_STEPS - 1
     assert {m["world"] for m in seen} == {1, 2}
+
+
+def test_elastic_grow_at_step_boundary_after_a_shrink(results):
+    """The reference's ``test_elastic_grow_at_step_boundary`` assertions on
+    the port: one shrink, at least one grow, no fallback, no checkpoint
+    read (the joiner hydrates from peers), the world size back at 2, and
+    every step's value the analytic replay's."""
+    out = results["ray_tpu_torch"]["elastic_grow"]
+    assert "scenario_raised" not in out, out
+    assert out["error"] is None
+    assert out["shrinks"] == 1.0
+    assert out["grows"] >= 1.0
+    assert (out["fallbacks"], out["marker"]) == (0.0, [])
+    assert out["world"] == 2.0
+    state, replay = np.zeros(2, dtype=np.float32), {}
+    for step in range(GROW_STEPS):
+        state = state.copy()
+        state[0] = state[0] * np.float32(0.75) + np.float32(step) * np.float32(0.125)
+        replay[step] = float(state[0])
+    seen = [m for m in out["history"] if "step" in m]
+    assert all(m["v"] == replay[m["step"]] for m in seen)
+    assert max(m["step"] for m in seen) == GROW_STEPS - 1
+
+
+def test_tiny_gpt2_fed_from_a_dataset_matches_jax(results):
+    """The tiny GPT-2 trained from a ``Dataset`` of the same rows through
+    ``datasets=``: losses within 1e-4 of ``JaxTrainer``'s on the same
+    dataset, and bit-equal to the port's own run fed the rows directly."""
+    ref, port = results["ray_tpu"]["gpt2_data"], results["ray_tpu_torch"]["gpt2_data"]
+    assert "scenario_raised" not in port and "raised" not in port, port
+    assert [m["step"] for m in port["history"]] == [m["step"] for m in ref["history"]] == [0, 1, 2]
+    got = [m["loss"] for m in port["history"]]
+    np.testing.assert_allclose(got, [m["loss"] for m in ref["history"]], rtol=1e-4, atol=1e-4)
+    assert got == [m["loss"] for m in results["ray_tpu_torch"]["gpt2"]["history"]]
 
 
 def test_torch_config_cuda_on_a_worker_without_a_card_raises(results):
